@@ -1,0 +1,94 @@
+"""Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
+
+The sources compile at first use into ``functionalmf_tpu_torch/_build/``
+as one shared library with a plain C interface (no PyTorch headers, so
+the build takes seconds). The library's file name carries a hash of the
+sources and flags: an edited source builds anew, an unchanged one loads
+the existing file. A missing nvcc or a failed compile raises with the
+compiler's output; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build", "load_library", "build_log"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC_DIR = _PKG / "csrc"
+_BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+_log = ""
+
+
+def _find_nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels of functionalmf_tpu_torch are compiled from csrc/ at "
+        "first use")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless a library of the same hash exists; return
+    its path."""
+    global _log
+    sources = sorted(_SRC_DIR.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out = _BUILD_DIR / f"libfmf_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    nvcc = _find_nvcc()
+    _BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_log() -> str:
+    """The compiler's output of the build this process ran ('' if the
+    library was already built)."""
+    return _log
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare the C signatures."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fmf_row_ll.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.fmf_row_ll.restype = i
+    lib.fmf_col_block_ll.argtypes = [i, p, p, p, p, p, p, p,
+                                     i, i, i, i, i, i, i, i, p]
+    lib.fmf_col_block_ll.restype = i
+    lib.fmf_error_string.argtypes = [i]
+    lib.fmf_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
