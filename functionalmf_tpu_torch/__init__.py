@@ -1,11 +1,12 @@
 """functionalmf_tpu_torch: the PyTorch / CUDA port of functionalmf_tpu.
 
-This slice runs the shipped recipe of
-``ConstrainedNonconjugateBayesianTensorFiltering``: a cell
-log-likelihood, linear constraints, GASS over W rows and the two-colour
-blocked V update, with the exact scale moves. Its GASS candidate
-log-likelihoods run in two hand-written CUDA kernels on the card
-(``ops/fused_ll.py``, ``csrc/fused_ll.cu``) and in their plain PyTorch
+The port runs ``ConstrainedNonconjugateBayesianTensorFiltering`` with a
+cell log-likelihood and linear constraints: GASS over W rows, the blocked
+V update under the red-black, sequential or joint schedule, optional EP
+centring, and the exact scale moves; and the GDELT politics benchmark
+(``apps/politics``). Its GASS candidate log-likelihoods run in two
+hand-written CUDA kernels on the card, each with and without EP
+(``ops/fused_ll.py``, ``csrc/fused_ll.cu``), and in their plain PyTorch
 versions on the CPU. The package imports torch, numpy and scipy, never
 jax and never ``functionalmf_tpu``.
 """

@@ -1,28 +1,44 @@
-"""Constrained black-box-likelihood BTF, red-black slice of the port.
+"""Constrained black-box-likelihood BTF, the cellfn recipes.
 
-Counterpart of functionalmf_tpu/models/constrained.py for its shipped
-recipe: a cell log-likelihood (``loglikelihood_cellfn``), linear
-constraints ``A tau >= c`` on every curve, GASS with the grid method,
-the W update over rows, the two-colour blocked V update
-(``v_schedule="redblack"``) and the exact scale moves
-(``interweave``, ``factor_rebalance``).
+Counterpart of functionalmf_tpu/models/constrained.py with a cell
+log-likelihood (``loglikelihood_cellfn``): linear constraints
+``A tau >= c`` on every curve, GASS with the grid method, the W update
+over rows, the blocked V update and the exact scale moves
+(``interweave``, ``factor_rebalance``). The V update runs any of the
+JAX package's schedules:
+
+* ``v_schedule="redblack"``: the two-colour schedule, every same-colour
+  block of every column in one GASS round (2 rounds, 3 with a ragged
+  tail);
+* ``v_schedule="seq"``: the time blocks one after another
+  (``_update_V_gass``, ceil(T / v_block_size) rounds);
+* ``v_block_size=None`` (or ``>= T``, any schedule but red-black): the
+  joint update of the whole curve, one round.
+
+A round is one batched GASS update over every (chain, column, block) of
+its blocks, given the rest. With ``ep_approx=(Mu_ep, Sigma_ep)`` the
+proposals are EP-centred (constrained.py:431-446, 633-681, 853-906): the
+W rows draw from the GLS Gaussian, the V blocks from the coupled
+(size*k) block precision ``kron(DtLD_blk, I_k) + diag_t(G)`` in t-major
+packing, and the likelihood divides the EP factor out again.
 
 Every GASS candidate log-likelihood goes through the fused functions of
-``ops/fused_ll.py``: on the card, the W update is one launch of the row
-kernel over all (chain, row) pairs, and each colour phase of the V update
-is one launch of the column-block kernel over all (chain, column, block)
-pairs. That is the computation of the JAX package's inline einsum
-(constrained.py:955-970), which is ``fused_col_block_ll`` for one pair.
-``fuse_cells`` is accepted for signature parity and changes nothing.
+``ops/fused_ll.py``, with the EP extras when EP is on: on the card, the
+W update is one launch of the row kernel over all (chain, row) pairs,
+and each V round is one launch of the column-block kernel over all of
+its (chain, column, block) pairs. That is the computation of the JAX
+package's inline einsum (constrained.py:955-970), which is
+``fused_col_block_ll`` for one pair. ``fuse_cells`` is accepted for
+signature parity and changes nothing.
 
-Not in this slice (NotImplementedError): a model without a cellfn,
-explicit ``loglikelihood_cells``/``loglikelihood_block``, the ``seq``
-and joint V schedules, ``gass_method="shrink"``, EP centering
-(``ep_approx``) and ``Row_constraints``.
+Not ported yet (NotImplementedError): a model without a cellfn,
+explicit ``loglikelihood_cells``/``loglikelihood_block``,
+``gass_method="shrink"`` and ``Row_constraints``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -31,14 +47,14 @@ from functionalmf_tpu_torch.models.base import BayesianTensorFiltering
 from functionalmf_tpu_torch.ops.fused_ll import (
     KERNEL_CELLS, as_cellfn, fused_col_block_ll_batched,
     fused_row_ll_batched)
-from functionalmf_tpu_torch.ops.mvn import cholesky_psd, \
-    sample_mvn_from_precision
+from functionalmf_tpu_torch.ops.mvn import (
+    _cho_solve, _solve_lt, cholesky_psd, sample_mvn_from_precision)
 from functionalmf_tpu_torch.samplers.gass import draw_gass_noise, gass
 from functionalmf_tpu_torch.samplers.horseshoe import resample_lam2
 from functionalmf_tpu_torch.samplers.slice1d import shrink_slice_1d
 
 __all__ = ["ConstrainedNonconjugateBayesianTensorFiltering",
-           "collapsed_scale_dims"]
+           "collapsed_scale_dims", "ep_block_precision"]
 
 _LATER = "not ported yet (ROADMAP.md, Queue 1 item 8)"
 _LOG_LAM2_MIN = float(np.log(1e-5))
@@ -53,9 +69,25 @@ def collapsed_scale_dims(w_len, ncols, ndepth, nembeds):
     return float(w_len), float(ncols * ndepth * nembeds)
 
 
+def ep_block_precision(DtLD_blk, G_blk):
+    """The coupled (size*k) precision of an EP-centred V block,
+    kron(DtLD_blk, I_k) + diag_t(G), t-major: Q[(t, a), (s, c)] =
+    DtLD_blk[t, s] 1{a = c} + G[t, a, c] 1{t = s} (constrained.py:
+    659-668, 889-896). DtLD_blk: (..., size, size); G_blk: (..., size, k,
+    k). Returns (..., size*k, size*k)."""
+    size, k = G_blk.shape[-3], G_blk.shape[-1]
+    dev = G_blk.device
+    Q = (torch.einsum("...ts,ac->...tasc", DtLD_blk,
+                      torch.eye(k, device=dev))
+         + torch.einsum("...tac,ts->...tasc", G_blk,
+                        torch.eye(size, device=dev)))
+    return Q.reshape(Q.shape[:-4] + (size * k, size * k))
+
+
 @dataclasses.dataclass
 class _Phase:
-    """Host-built constants of one colour phase of the red-black V update."""
+    """Host-built constants of one round of the blocked V update: its
+    blocks, all of one size, update together given the rest."""
     starts: list
     size: int
     tidx: torch.Tensor       # (nblk, size) time indices of the blocks
@@ -69,8 +101,8 @@ class _Phase:
 
 
 class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
-    """Constrained nonconjugate BTF (reference factor.py:894-1017), the
-    red-black recipe. ``device=`` is required."""
+    """Constrained nonconjugate BTF (reference factor.py:894-1017) with a
+    cellfn. ``device=`` is required."""
 
     def __init__(self, nrows, ncols, ndepth, loglikelihood, Constraints,
                  ep_approx=None,
@@ -99,8 +131,6 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         if loglikelihood_cells is not None or loglikelihood_block is not None:
             raise NotImplementedError(
                 f"explicit loglikelihood_cells/_block are {_LATER}")
-        if ep_approx is not None:
-            raise NotImplementedError(f"EP centering is {_LATER}")
         if Row_constraints is not None:
             raise NotImplementedError(f"Row_constraints are {_LATER}")
         if gass_method not in ("grid", "shrink"):
@@ -109,10 +139,6 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             raise NotImplementedError(f"gass_method='shrink' is {_LATER}")
         if v_schedule not in ("seq", "redblack"):
             raise ValueError(f"unknown v_schedule {v_schedule!r}")
-        if v_schedule != "redblack":
-            raise NotImplementedError(
-                f"v_schedule={v_schedule!r} is {_LATER}; pass "
-                "v_schedule='redblack'")
         super().__init__(nrows, ncols, ndepth, **kwargs)
         self.loglikelihood = loglikelihood
         self.loglikelihood_cellfn = as_cellfn(loglikelihood_cellfn)
@@ -134,8 +160,41 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         self.v_block_size = None if v_block_size is None else int(v_block_size)
 
         Constraints = np.asarray(Constraints, dtype=np.float32)
+        if v_schedule == "redblack":
+            self._check_redblack(Constraints)
+
+        self._CA_np = Constraints[:, :-1]                      # (J, T)
+        self._CC_np = Constraints[:, -1]                       # (J,)
+        self.Constraints_A = self._t(self._CA_np)
+        self.Constraints_C = self._t(self._CC_np)
+        self.nconstraints = int(Constraints.shape[0])
+        self._c_rows = self.Constraints_C.repeat(self.ncols)   # (m*J,)
+
+        nch, n = self.nchains, self.nrows
+        self._row_chain = torch.arange(
+            nch, dtype=torch.int32, device=self.device).repeat_interleave(n)
+        self._row_idx = torch.arange(
+            n, dtype=torch.int32, device=self.device).repeat(nch)
+        T = self.ndepth
+        bs = self.v_block_size or T
+        if v_schedule == "redblack":
+            nb_full, rem = divmod(T, bs)
+            self._phases = [self._build_phase([b * bs for b in blocks], bs)
+                            for blocks in (range(0, nb_full, 2),
+                                           range(1, nb_full, 2)) if blocks]
+            if rem:   # ragged tail block, one extra single-block round
+                self._phases.append(self._build_phase([nb_full * bs], rem))
+        else:         # sequential blocks; one block of T is the joint update
+            self._phases = [self._build_phase([s0], min(bs, T - s0))
+                            for s0 in range(0, T, bs)]
+        self._init_ep(ep_approx)
+
+    # ------------------------------------------------------------------
+    def _check_redblack(self, Constraints):
+        """The red-black schedule is exact Gibbs only when same-colour
+        blocks are conditionally independent (constrained.py:247-272)."""
         bs = self.v_block_size
-        if bs is None or bs >= ndepth:
+        if bs is None or bs >= self.ndepth:
             raise ValueError("redblack needs a finite v_block_size < T")
         supp = np.abs(self.Delta_np) > 0
         extents = [np.nonzero(r)[0] for r in supp if r.any()]
@@ -153,24 +212,39 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                 f"v_block_size + 1 = {bs + 1}: it could couple two "
                 "same-color blocks")
 
-        self._CA_np = Constraints[:, :-1]                      # (J, T)
-        self._CC_np = Constraints[:, -1]                       # (J,)
-        self.Constraints_A = self._t(self._CA_np)
-        self.Constraints_C = self._t(self._CC_np)
-        self.nconstraints = int(Constraints.shape[0])
-        self._c_rows = self.Constraints_C.repeat(self.ncols)   # (m*J,)
-
-        nch, n = self.nchains, self.nrows
-        self._row_chain = torch.arange(
-            nch, dtype=torch.int32, device=self.device).repeat_interleave(n)
-        self._row_idx = torch.arange(
-            n, dtype=torch.int32, device=self.device).repeat(nch)
-        nb_full, rem = divmod(self.ndepth, bs)
-        self._phases = [self._build_phase([b * bs for b in blocks], bs)
-                        for blocks in (range(0, nb_full, 2),
-                                       range(1, nb_full, 2)) if blocks]
-        if rem:   # ragged tail block, one extra single-block round
-            self._phases.append(self._build_phase([nb_full * bs], rem))
+    def _init_ep(self, ep_approx):
+        """EP centring (constrained.py:294-315): float32 host copies, the
+        overconfidence warning, and the device tensors the updates read:
+        ``_ep`` = (mu, sig) as the kernels' extras, (n, m, T) each (empty
+        without EP), and the masked precisions Sinv2 and Mu0 * Sinv2."""
+        self._ep = ()
+        if ep_approx is None:
+            self.Mu_ep = self.Sigma_ep = None
+            return
+        shape = (self.nrows, self.ncols, self.ndepth)
+        self.Mu_ep = np.asarray(ep_approx[0], np.float32)
+        self.Sigma_ep = np.asarray(ep_approx[1], np.float32)
+        if self.Mu_ep.shape != shape or self.Sigma_ep.shape != shape:
+            raise ValueError(f"ep_approx must be two {shape} arrays, got "
+                             f"{self.Mu_ep.shape} and {self.Sigma_ep.shape}")
+        # An overconfident EP traps the chain: the subtracted EP logpdf
+        # grows quadratically with distance from Mu_ep, so once an
+        # excursion leaves the EP bulk, every candidate nearer the centre
+        # falls below the slice.
+        mu_np = np.asarray(ep_approx[0], np.float64)
+        sig_np = np.asarray(ep_approx[1], np.float64)
+        spread = np.nanstd(mu_np)
+        if np.nanmedian(sig_np) < 0.5 * spread:
+            warnings.warn(
+                "Sigma_ep is small relative to the spread of Mu_ep "
+                f"(median {np.nanmedian(sig_np):.3g} vs std {spread:.3g}); "
+                "overconfident EP approximations can trap the GASS chain "
+                "— consider ep_from_mf(mode='multiplier', multiplier>=3).")
+        mu, sig = self._t(self.Mu_ep), self._t(self.Sigma_ep)
+        self._ep = (mu, sig)
+        nan = torch.isnan(mu)
+        self._ep_sinv2 = torch.where(nan, 0.0, 1.0 / (sig * sig))
+        self._ep_mu_sinv2 = torch.where(nan, 0.0, mu) * self._ep_sinv2
 
     # ------------------------------------------------------------------
     def _build_phase(self, starts, size):
@@ -236,9 +310,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         c = self._c_rows.expand(B, -1)
         dmask = self._wmask.expand(nch, n, k).reshape(B, k)
 
-        eye = torch.eye(k, device=self.device)
-        Q = (eye / state["sigma2"][:, None, None, None]).expand(nch, n, k, k)
-        v_all = sample_mvn_from_precision(gen, Q, **self.linalg_opts)
+        L, mu_all = self._w_proposal(V, state["sigma2"])
+        v_all = sample_mvn_from_precision(gen, L, chol_factor=True)
         v_all = v_all.reshape(B, k) * dmask
         log_u, gumbel = draw_gass_noise(gen, B, self.gass_ngrid, self.device)
 
@@ -249,28 +322,108 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
 
         bt = V.reshape(nch, m * T, k)
         y2 = y.reshape(n, m * T)
+        extras = tuple(e.reshape(n, m * T) for e in self._ep)
         cellfn = self.loglikelihood_cellfn
 
         def loglik(cands):                   # (B, G, k) -> (B, G)
             w = (cands * dmask[:, None]).contiguous()
             return fused_row_ll_batched(w, bt, y2, self._row_chain,
-                                        self._row_idx, cellfn)
+                                        self._row_idx, cellfn, extras)
 
         x_new, _ = gass(state["W"].reshape(B, k), loglik, Af, c, v=v_all,
-                        log_u=log_u, gumbel=gumbel, dim_mask=dmask)
+                        log_u=log_u, gumbel=gumbel, dim_mask=dmask,
+                        mu=None if mu_all is None else mu_all.reshape(B, k))
         return dict(state, W=x_new.reshape(nch, n, k) * self._wmask)
 
+    def _w_proposal(self, V, sigma2):
+        """The W rows' proposal Gaussian (constrained.py:428-450): the
+        Cholesky factor L of its precision Q and its mean, (nch, n, k)
+        (None without EP, where Q = I / sigma2). With EP, the GLS
+        Gaussian: Q = sum_x Sinv2[i, x] V[x] V[x]^T on the row's active
+        dims + I / sigma2, mean Q^-1 sum_x (Mu0 Sinv2)[i, x] V[x]."""
+        nch, n, k = self.nchains, self.nrows, self.nembeds
+        eye = torch.eye(k, device=self.device)
+        prior = eye / sigma2[:, None, None, None]            # (nch, 1, k, k)
+        if not self._ep:
+            # sample_mvn_from_precision(**linalg_opts) in the JAX package:
+            # the jitter ladder only under force_psd
+            opts = self.linalg_opts
+            return cholesky_psd(prior.expand(nch, n, k, k),
+                                eps=opts["force_psd_eps"],
+                                attempts=opts["force_psd_attempts"]
+                                if opts["force_psd"] else 0), None
+        mask = self._wmask
+        Vf = V.reshape(nch, -1, k)
+        s2 = self._ep_sinv2.reshape(n, -1)
+        Q = (torch.einsum("ix,cxa,cxb->ciab", s2, Vf, Vf)
+             * mask[:, :, None] * mask[:, None, :] + prior)
+        mu_part = torch.einsum("ix,cxa->cia", self._ep_mu_sinv2.reshape(n, -1),
+                               Vf) * mask
+        L = self._chol(Q)
+        return L, _cho_solve(L, mu_part)
+
+    def _chol(self, Q):
+        """cholesky_psd with the model's jitter ladder, whatever
+        force_psd says, as the JAX package's EP proposal and V blocks
+        (constrained.py:443, 673, 689, 901, 911)."""
+        return cholesky_psd(Q, eps=self.linalg_opts["force_psd_eps"],
+                            attempts=self.linalg_opts["force_psd_attempts"])
+
     # ------------------------------------------------------------------
-    # V update: two-colour blocked GASS over (chain, column, block)
+    # V update: blocked GASS over (chain, column, block), one round per
+    # phase (red-black colours, sequential blocks, or the joint block)
     # ------------------------------------------------------------------
     def _blocks_loglik(self, W, y, ph, cands):
         """Candidate log-likelihoods of every pair of phase ``ph``.
         W: (nch, n, k) masked; cands: (P, G, size, k). Returns (P, G)."""
         return fused_col_block_ll_batched(
             cands.contiguous(), W, y, ph.pair_chain, ph.pair_col, ph.pair_t0,
-            self.loglikelihood_cellfn)
+            self.loglikelihood_cellfn, self._ep)
 
-    def _phase_update(self, X, W, DtLD, y, ph, gen):
+    def _v_ep_terms(self, W):
+        """The EP Gram and moment of every (column, t) given W
+        (constrained.py:633-640): G (nch, m, T, k, k) and mu_part
+        (nch, m, T, k); (None, None) without EP."""
+        if not self._ep:
+            return None, None
+        G = torch.einsum("ijt,cia,cib->cjtab", self._ep_sinv2, W, W)
+        mu_part = torch.einsum("ijt,cia->cjta", self._ep_mu_sinv2, W)
+        return G, mu_part
+
+    def _block_gaussian(self, DtLD, G, mu_part, X_out, tidx, z):
+        """The conditional Gaussian of each block given the coordinates
+        outside it (X_out, zero inside the blocks): its mean and a draw of
+        its zero-mean part from the standard normal z, both (nch, m, nblk,
+        size*k) in t-major packing. Without EP the precision is
+        kron(I_k, DtLD_blk): one (size, size) factor with k right-hand
+        sides. With EP it is the coupled ep_block_precision."""
+        DtLD_blk = DtLD[:, :, tidx[:, :, None], tidx[:, None, :]]
+        DtLD_rows = DtLD[:, :, tidx, :]                  # (nch,m,nblk,sz,T)
+        rhs_tk = -torch.einsum("cmbts,cmsk->cmbtk", DtLD_rows, X_out)
+        lead = rhs_tk.shape[:3]
+        if G is not None:
+            Qbb = ep_block_precision(DtLD_blk, G[:, :, tidx])
+            rhs = (rhs_tk + mu_part[:, :, tidx]).reshape(lead + (-1,))
+            d = torch.diagonal(Qbb, dim1=-2, dim2=-1)
+            dinv = torch.rsqrt(torch.where(d > 0, d, torch.ones_like(d)))
+            L = self._chol(Qbb * dinv[..., :, None] * dinv[..., None, :])
+            mu_b = _cho_solve(L, rhs * dinv) * dinv
+            v_b = _solve_lt(L, z.reshape(lead + (-1,))) * dinv
+            return mu_b, v_b
+        d = torch.diagonal(DtLD_blk, dim1=-2, dim2=-1)
+        dinv = torch.rsqrt(torch.where(d > 0, d, torch.ones_like(d)))
+        Qe = DtLD_blk * dinv[..., :, None] * dinv[..., None, :]
+        L = self._chol(Qe)
+        Lt = L.mT
+        yv = torch.linalg.solve_triangular(L, rhs_tk * dinv[..., None],
+                                           upper=False)
+        mu_b = torch.linalg.solve_triangular(Lt, yv, upper=True) \
+            * dinv[..., None]
+        v_b = torch.linalg.solve_triangular(Lt, z, upper=True) \
+            * dinv[..., None]
+        return mu_b.reshape(lead + (-1,)), v_b.reshape(lead + (-1,))
+
+    def _phase_update(self, X, W, DtLD, G, mu_part, y, ph, gen):
         nch, n, m, k = self.nchains, self.nrows, self.ncols, self.nembeds
         nblk, size = len(ph.starts), ph.size
         D = size * k
@@ -278,26 +431,10 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         X_out = X * ph.t_mask[:, None]
         tidx = ph.tidx
 
-        # conditional Gaussian of each block given the rest (no EP: the
-        # precision is kron(I_k, DtLD_blk), one (size, size) factor with
-        # k right-hand sides)
-        DtLD_blk = DtLD[:, :, tidx[:, :, None], tidx[:, None, :]]
-        DtLD_rows = DtLD[:, :, tidx, :]                  # (nch,m,nblk,sz,T)
-        rhs_tk = -torch.einsum("cmbts,cmsk->cmbtk", DtLD_rows, X_out)
         z = torch.randn((nch, m, nblk, size, k), generator=gen,
                         device=self.device)
-        d = torch.diagonal(DtLD_blk, dim1=-2, dim2=-1)
-        dinv = torch.rsqrt(torch.where(d > 0, d, torch.ones_like(d)))
-        Qe = DtLD_blk * dinv[..., :, None] * dinv[..., None, :]
-        L = cholesky_psd(Qe, eps=self.linalg_opts["force_psd_eps"],
-                         attempts=self.linalg_opts["force_psd_attempts"])
-        Lt = L.mT
-        yv = torch.linalg.solve_triangular(L, rhs_tk * dinv[..., None],
-                                           upper=False)
-        mu_b = (torch.linalg.solve_triangular(Lt, yv, upper=True)
-                * dinv[..., None]).reshape(B, D)
-        v_b = (torch.linalg.solve_triangular(Lt, z, upper=True)
-               * dinv[..., None]).reshape(B, D)
+        mu_b, v_b = self._block_gaussian(DtLD, G, mu_part, X_out, tidx, z)
+        mu_b, v_b = mu_b.reshape(B, D), v_b.reshape(B, D)
 
         # constraints restricted to each block; frozen coordinates fold
         # into the offsets
@@ -324,12 +461,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         X[:, :, tidx, :] = Xb_new.reshape(nch, m, nblk, size, k)
         return X
 
-    def _update_V_gass_redblack(self, state, y, gen):
+    def _update_V_gass(self, state, y, gen):
         W = (state["W"] * self._wmask).contiguous()
         DtLD = self._v_prior_dtld(state["lam2"], state["Tau2"])
+        G, mu_part = self._v_ep_terms(W)
         X = state["V"]
         for ph in self._phases:
-            X = self._phase_update(X, W, DtLD, y, ph, gen)
+            X = self._phase_update(X, W, DtLD, G, mu_part, y, ph, gen)
         return dict(state, V=X)
 
     # ------------------------------------------------------------------
@@ -504,7 +642,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
 
         def update_V(state, y, gen):
             for _ in range(rV):
-                state = self._update_V_gass_redblack(state, y, gen)
+                state = self._update_V_gass(state, y, gen)
             return state
 
         def sweep(state, y, gen):

@@ -83,9 +83,14 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fmf_row_ll.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    # cell, cands, bt, y, mu, sig, row_chain, row_idx, out,
+    # R, G, k, C, nchains, nrows, stream (mu = sig = NULL: no EP)
+    lib.fmf_row_ll.argtypes = [i, p, p, p, p, p, p, p, p,
+                               i, i, i, i, i, i, p]
     lib.fmf_row_ll.restype = i
-    lib.fmf_col_block_ll.argtypes = [i, p, p, p, p, p, p, p,
+    # cell, cands, w, y, mu, sig, pair_chain, pair_col, pair_t0, out,
+    # P, G, Tb, k, n, m, T, nchains, stream
+    lib.fmf_col_block_ll.argtypes = [i, p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, i, i, i, p]
     lib.fmf_col_block_ll.restype = i
     lib.fmf_error_string.argtypes = [i]

@@ -27,6 +27,18 @@ from functionalmf_tpu_torch.ops.penalty import num_penalty_rows
 from functionalmf_tpu_torch.samplers.horseshoe import lam2_shape
 
 
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """The port's tests run tiny tensors: one intra-op thread is as fast
+    as many, and the suite's parallel workers then do not oversubscribe
+    the cores (many threads each made the chain tests ten times slower
+    under xdist). Files that run chains import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_loglik(Y, WV, W, V, row=None, col=None):
     if row is not None:
         Y = Y[row]
@@ -221,9 +233,7 @@ def test_lam2_exponents_pinned_as_in_the_reference():
 
 @pytest.mark.parametrize("kw, match", [
     (dict(loglikelihood_cellfn=None), "loglikelihood_cellfn"),
-    (dict(ep_approx=(np.zeros((4, 3, 6)), np.ones((4, 3, 6)))), "EP"),
     (dict(Row_constraints=np.zeros((1, 3))), "Row_constraints"),
-    (dict(v_schedule="seq"), "v_schedule"),
     (dict(gass_method="shrink"), "shrink"),
 ])
 def test_out_of_slice_options_raise(kw, match):
@@ -234,6 +244,27 @@ def test_out_of_slice_options_raise(kw, match):
     args.update(kw)
     with pytest.raises(NotImplementedError, match=match):
         TorchModel(n, m, T, torch_loglik, C, device="cpu", **args)
+
+
+@pytest.mark.parametrize("force_psd", [True, False])
+def test_w_prior_proposal_honours_force_psd(force_psd):
+    """Without EP the W proposal's precision is I / sigma2, factored as
+    sample_mvn_from_precision(**linalg_opts) factors it in the JAX package:
+    the jitter ladder (eps * 100^a, a < 4) only under force_psd. At
+    sigma2 = -10 the precision is -0.1 I; the last rung (+1) repairs it."""
+    n, m, T, k = 4, 3, 6, 2
+    _, C, W0, V0, _ = _problem(1, n, m, T, k)
+    tm = TorchModel(n, m, T, torch_loglik, C, device="cpu", nembeds=k,
+                    tf_order=0, W_init=W0, V_init=V0, v_block_size=3,
+                    v_schedule="redblack", loglikelihood_cellfn=POISSON,
+                    force_psd=force_psd)
+    L, mu = tm._w_proposal(tm.state["V"], torch.full((1,), -10.0))
+    assert mu is None and L.shape == (1, n, k, k)
+    if force_psd:
+        np.testing.assert_allclose(L.numpy(), np.broadcast_to(
+            np.sqrt(0.9) * np.eye(k), L.shape), rtol=1e-6)
+    else:
+        assert torch.isnan(torch.diagonal(L, dim1=-2, dim2=-1)).all()
 
 
 def test_redblack_validation_matches_reference():

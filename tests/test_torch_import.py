@@ -8,6 +8,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "functionalmf_tpu_torch",
     "functionalmf_tpu_torch._runtime",
+    "functionalmf_tpu_torch.apps.politics.benchmark",
     "functionalmf_tpu_torch.interop",
     "functionalmf_tpu_torch.models.base",
     "functionalmf_tpu_torch.models.constrained",
@@ -20,6 +21,9 @@ MODULES = [
     "functionalmf_tpu_torch.samplers.horseshoe",
     "functionalmf_tpu_torch.samplers.slice1d",
     "functionalmf_tpu_torch.utils.diagnostics",
+    "functionalmf_tpu_torch.utils.ep",
+    "functionalmf_tpu_torch.utils.nmf",
+    "functionalmf_tpu_torch.utils.pav",
 ]
 
 
