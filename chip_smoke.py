@@ -7,20 +7,12 @@ EP centring, and check them.
 Phases (any failure raises and exits non-zero before the last line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels of functionalmf_tpu_torch/csrc from source;
-  3. kernels: each of the four kernels (row and column-block, each with and
-     without EP) against its plain PyTorch version on the card, at the
-     paths' shapes (19x19x228, k=5, 101 candidates; column blocks of 8, the
-     4-wide tail and the joint update's 228), NaN y at held-out pairs; the
-     EP variants with the politics path's own EP (the app's NMF warm start
-     and ep_from_nmf sigma, finite at the held-out pairs) and candidates
-     around the warm start; rtol=1e-5 / atol=1e-3 (the sums run in another
-     order); median times from CUDA events;
-  4. red-black slice: the bench.py data (seed 42) and red-black recipe on
+  3. red-black slice: the bench.py data (seed 42) and red-black recipe on
      the card, run_gibbs at nchains=1 and nchains=4; both non-EP kernels
      must have launched in each run, every draw must be finite and
      feasible, and the results must carry the JAX package's keys and
      shapes;
-  5. politics: the port's app (functionalmf_tpu_torch.apps.politics.
+  4. politics: the port's app (functionalmf_tpu_torch.apps.politics.
      benchmark) on its synthetic 19x19x228 tensor, EP on, with the seq
      schedule (nchains=1), the red-black schedule (nchains=4) and the joint
      update; only the EP kernels may launch and both must, the draws must
@@ -29,11 +21,25 @@ Phases (any failure raises and exits non-zero before the last line):
      must beat the empirical mean's (the warm start alone does: the app's
      EP is overconfident on this tensor and holds the chain near it);
      sweeps/s from the app's cold timer and from 20 more warmed sweeps;
-  6. agreement: models run on the card (kernels) and on the CPU (plain
+  5. agreement: models run on the card (kernels) and on the CPU (plain
      versions) must reach the same posterior mean of Mu: small models of
      the red-black recipe and of the seq schedule with EP, and the
      politics tensor at full width (seq, EP at a sigma the model does not
-     call overconfident), started at half the warm start's rates.
+     call overconfident), started at half the warm start's rates;
+  6. kernels: each of the four kernels (row and column-block, each with and
+     without EP) against its plain PyTorch version on the card, at every
+     shape the paths launch it at (functionalmf_tpu_torch/ops/
+     fused_ll_bench.py: 19x19x228, k=5, 101 candidates; the W update at
+     nchains 1 and 4; column blocks of 8 in a colour phase at nchains 1
+     and 4 and in a seq round, the 4-wide tail, the joint update's 228,
+     and a joint update at T=1000 on synthetic counts), NaN y at held-out
+     pairs; the EP variants with the politics path's own EP (the app's NMF
+     warm start and ep_from_nmf sigma) and candidates around the warm
+     start; rtol=1e-5 / atol=1e-3 (the sums run in another order); two
+     launches on the same inputs must agree bit for bit; each kernel's
+     device time (torch.profiler), the wrapper's host time, its bound on
+     an H100 and its share of it. Last, because torch.profiler slows every
+     later launch of the process on the host.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
 """
@@ -49,10 +55,14 @@ import torch
 NROWS, NCOLS, NDEPTH, NEMBEDS = 19, 19, 228, 5
 NGRID = 100
 BLOCK = 8
-RTOL, ATOL = 1e-5, 1e-3
 WARM_SWEEPS = 20
 REPLACES = {"fused_row_ll": "functionalmf_tpu/ops/fused_ll.py:80",
             "fused_col_block_ll": "functionalmf_tpu/ops/fused_ll.py:138"}
+# the shape of each kernel's record in the JSON line: the one its main
+# path launches most (the bench.py recipe without EP, politics seq with)
+RECORD_SHAPE = {"fused_row_ll": "R=19,", "fused_row_ll_ep": "R=19,",
+                "fused_col_block_ll": "red-black phase: P=266,",
+                "fused_col_block_ll_ep": "seq round"}
 
 
 def fail(msg):
@@ -91,34 +101,6 @@ def poisson_loglik(Y, WV, W, V, row=None, col=None):
     return torch.where(nan, 0.0, ll).sum()
 
 
-def cuda_median_ms(fn, reps=50, warm=5):
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def compare(name, got, want):
-    got, want = got.double(), want.double()
-    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-        fail(f"{name}: non-finite output")
-    err = (got - want).abs()
-    bound = ATOL + RTOL * want.abs()
-    if bool((err > bound).any()):
-        fail(f"{name}: kernel disagrees with its plain version "
-             f"(max |err| {float(err.max()):.3e}, worst err/bound "
-             f"{float((err / bound).max()):.3f})")
-    return float(err.max())
-
-
 def politics_problem():
     """The politics path's inputs as the app builds them (seed 42): the
     synthetic tensor with NaN at the held-out pairs, the NMF warm start
@@ -134,97 +116,16 @@ def politics_problem():
     return Y_train, W0, V0, ep_from_nmf(Y_train, W0, V0)
 
 
-def check_kernel(name, fn, plain, shape_note):
-    """fn and plain on the same inputs: agreement and median ms of each."""
-    got = fn()
-    want = plain()
-    torch.cuda.synchronize()
-    err = compare(f"{name} ({shape_note})", got, want)
-    ms = cuda_median_ms(fn)
-    pms = cuda_median_ms(plain)
-    print(f"kernel {name}: max_abs_err={err:.3e} ms={ms:.4f} "
-          f"plain_ms={pms:.4f} ({shape_note})")
-    return err, ms, pms
-
-
 def kernel_phase(dev, Y, W0, V0, pol):
-    from functionalmf_tpu_torch.ops import fused_ll as F
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
-    y_pol, Wp, Vp = t(pol[0]), t(pol[1]), t(pol[2])
-    ep = tuple(t(e) for e in pol[3])
-    G = NGRID + 1                      # grid candidates + the current point
-    k = NEMBEDS
-    C = NCOLS * NDEPTH
-    records = {}
-
-    def jitter(shape):                 # candidates within 10% of a state
-        return torch.rand(shape, generator=gen, device=dev) * 0.2 + 0.9
-
-    # W update: every row of one chain, C = m*T cells per row; without EP
-    # the bench.py data, with EP the politics warm start and its EP
-    cands = (torch.rand((NROWS, G, k), generator=gen, device=dev) * 0.4 + 0.8)
-    cands = cands * torch.as_tensor(np.tril(np.ones((NROWS, k))) > 0,
-                                    device=dev)[:, None, :]
-    rc = torch.zeros(NROWS, dtype=torch.int32, device=dev)
-    ri = torch.arange(NROWS, dtype=torch.int32, device=dev)
-    for name, y, cw, bt, extras in (
-            ("fused_row_ll", t(Y), cands, t(V0), ()),
-            ("fused_row_ll_ep", y_pol, Wp[:, None, :] * jitter((NROWS, G, k)),
-             Vp, ep)):
-        y2 = y.reshape(NROWS, C).contiguous()
-        bt = bt.reshape(1, C, k).contiguous()
-        ex = tuple(e.reshape(NROWS, C).contiguous() for e in extras)
-        err, ms, pms = check_kernel(
-            name, lambda: F.fused_row_ll_batched(cw, bt, y2, rc, ri,
-                                                 F.POISSON, ex),
-            lambda: F.row_ll_plain(cw, bt, y2, rc, ri, F.POISSON, ex),
-            f"R={NROWS}, G={G}, k={k}, C={C}")
-        records[name] = dict(replaces=REPLACES["fused_row_ll"],
-                             max_abs_err=err, ms=ms, plain_ms=pms)
-
-    # V updates: a red-black colour phase (19 columns x 14 blocks of 8), a
-    # sequential round (19 columns, one block of 8), the 4-wide tail and the
-    # joint update (one block of 228); the JSON record times the shape its
-    # path launches most: the colour phase without EP (the red-black
-    # recipe), the sequential round with EP (the politics default)
-    nb_full, rem = divmod(NDEPTH, BLOCK)
-    shapes = (("red-black phase", [b * BLOCK for b in range(0, nb_full, 2)],
-               BLOCK),
-              ("seq round", [8 * BLOCK], BLOCK),
-              ("tail", [nb_full * BLOCK], rem),
-              ("joint", [0], NDEPTH))
-    timed = {"fused_col_block_ll": "red-black phase",
-             "fused_col_block_ll_ep": "seq round"}
-    for name, y, w, extras in (("fused_col_block_ll", t(Y), t(W0), ()),
-                               ("fused_col_block_ll_ep", y_pol, Wp, ep)):
-        w = w[None].contiguous()
-        errs = []
-        for label, starts, Tb in shapes:
-            P = NCOLS * len(starts)
-            pc = torch.zeros(P, dtype=torch.int32, device=dev)
-            pj = torch.arange(NCOLS, dtype=torch.int32,
-                              device=dev).repeat_interleave(len(starts))
-            pt = torch.as_tensor(starts * NCOLS, dtype=torch.int32,
-                                 device=dev)
-            if extras:
-                tt = pt[:, None].long() + torch.arange(Tb, device=dev)
-                c3 = Vp[pj[:, None].long(), tt][:, None] * jitter((P, G, Tb, k))
-            else:
-                c3 = (torch.rand((P, G, Tb, k), generator=gen, device=dev)
-                      * 0.4 + 0.8)
-            err, ms, pms = check_kernel(
-                name, lambda: F.fused_col_block_ll_batched(
-                    c3, w, y, pc, pj, pt, F.POISSON, extras),
-                lambda: F.col_block_ll_plain(c3, w, y, pc, pj, pt,
-                                             F.POISSON, extras),
-                f"{label}: P={P}, G={G}, Tb={Tb}, k={k}")
-            errs.append(err)
-            if label == timed[name]:
-                rec = dict(ms=ms, plain_ms=pms)
-        records[name] = dict(replaces=REPLACES["fused_col_block_ll"],
-                             max_abs_err=max(errs), **rec)
+    """Every kernel at every shape of the paths: agreement with its plain
+    version, two launches bit-identical, device and host time, bound."""
+    from functionalmf_tpu_torch.ops import fused_ll_bench as B
+    try:
+        records = B.run_cases(B.path_cases(dev, Y, W0, V0, pol))
+    except AssertionError as exc:
+        fail(str(exc))
+    for rec in records:
+        print(B.format_record(rec))
     return records
 
 
@@ -273,7 +174,7 @@ def check_results(tag, res, model, nchains, nsamples):
 
 def politics_run(tag, argv, nchains, nsamples, Y_train):
     """The port's politics app on the card, EP on, through its entry point;
-    returns the EP kernels' launches on this run."""
+    returns the kernels' launches on this run and its sweeps."""
     from functionalmf_tpu_torch.apps.politics import benchmark
     from functionalmf_tpu_torch.ops import fused_ll as F
     with tempfile.TemporaryDirectory() as empty:    # the synthetic tensor
@@ -318,8 +219,9 @@ def politics_run(tag, argv, nchains, nsamples, Y_train):
     dt = time.perf_counter() - t0
     print(f"politics {tag} warmed: sweeps={WARM_SWEEPS} seconds={dt:.3f} "
           f"sweeps_per_sec={WARM_SWEEPS / dt:.3f}")
-    print(f"launches politics {tag}: {json.dumps(launches)}")
-    return launches
+    print(f"launches politics {tag}: {json.dumps(launches)} in "
+          f"{out.nsweeps} sweeps")
+    return launches, out.nsweeps
 
 
 def slice_run(dev, Y, Con, W0, V0, nchains, nburn, nsamples):
@@ -353,7 +255,7 @@ def slice_run(dev, Y, Con, W0, V0, nchains, nburn, nsamples):
     print(f"slice {tag}: sweeps={nsweeps} seconds={dt:.3f}")
     print(f"sweeps_per_sec {tag}: {nsweeps / dt:.3f}")
     print(f"nan_fallbacks {tag}: {res['nan_fallbacks'].tolist()}")
-    print(f"launches {tag}: {json.dumps(launches)}")
+    print(f"launches {tag}: {json.dumps(launches)} in {nsweeps} sweeps")
     if nchains > 1:
         print(f"rhat {tag}: max={res['rhat'].get('max')}")
     return res, launches
@@ -476,14 +378,14 @@ def main():
 
     Y, Con, W0, V0, _ = bench_data()
     pol = politics_problem()
-    records = kernel_phase(dev, Y, W0, V0, pol)
 
     _, l1 = slice_run(dev, Y, Con, W0, V0, nchains=1, nburn=100,
                       nsamples=100)
     slice_run(dev, Y, Con, W0, V0, nchains=4, nburn=20, nsamples=20)
     # the politics app's default schedule first: its launches are the EP
     # kernels' record
-    l_ep = politics_run("seq nchains=1", ["--nburn", "30"], 1, 30, pol[0])
+    l_ep, s_ep = politics_run("seq nchains=1", ["--nburn", "30"], 1, 30,
+                              pol[0])
     politics_run("redblack nchains=4",
                  ["--v-schedule", "redblack", "--nburn", "20"], 4, 20, pol[0])
     politics_run("joint nchains=1", ["--v-block-size", "0", "--nburn", "3"],
@@ -491,14 +393,33 @@ def main():
     agreement_phase(dev, "redblack", ep=False)
     agreement_phase(dev, "seq", ep=True)
     politics_agreement(dev, pol)
+    # last: torch.profiler, which times the kernels, slows every later
+    # launch of the process on the host; the recipe once more shows how much
+    records = kernel_phase(dev, Y, W0, V0, pol)
+    print("red-black recipe again, after the profiled kernel phase:")
+    slice_run(dev, Y, Con, W0, V0, nchains=1, nburn=20, nsamples=20)
 
+    # launches and launches per sweep of each kernel's main path: the
+    # bench.py recipe at nchains=1 (200 sweeps), politics seq (EP)
     launches = {**l1, **{k: v for k, v in l_ep.items() if k.endswith("_ep")}}
-    kernels = [dict(name=name, route="cuda",
-                    source="functionalmf_tpu_torch/csrc/fused_ll.cu",
-                    replaces=rec["replaces"], launches=launches[name],
-                    max_abs_err=rec["max_abs_err"], ms=rec["ms"],
-                    plain_ms=rec["plain_ms"])
-               for name, rec in records.items()]
+    sweeps = {k: (s_ep if k.endswith("_ep") else 200) for k in launches}
+    kernels = []
+    for name in RECORD_SHAPE:
+        mine = [r for r in records if r["name"] == name]
+        rec = next(r for r in mine if RECORD_SHAPE[name] in r["shape"])
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="functionalmf_tpu_torch/csrc/fused_ll.cu",
+            replaces=REPLACES[name.removesuffix("_ep")],
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=rec["device_us"] / 1e3, plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_us"] / 1e3, bound_by=rec["bound_by"],
+            library_ms=None, shape=rec["shape"],
+            device_us=rec["device_us"], bound_us=rec["bound_us"],
+            host_us=rec["host_us"], event_ms=rec["event_ms"],
+            launches_per_sweep=launches[name] / sweeps[name],
+            device_us_by_shape={r["shape"]: r["device_us"] for r in mine}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Device checks, float32 matmul precision and the per-sweep RNG.
 
-* ``resolve_device`` turns the model's explicit ``device=`` argument into a
-  ``torch.device`` and refuses a CUDA device that is not there. Nothing
-  switches to the CPU on its own.
+* ``resolve_device`` turns the model's ``device=`` argument (``"cuda"``
+  unless the caller asks for the CPU) into a ``torch.device`` and refuses
+  a CUDA device that is not there. Nothing switches to the CPU on its own.
 * ``require_full_f32`` turns TF32 off for matmuls and convolutions and
   asserts it. On the H100, TF32 (about three decimal digits) is the hazard
   that the JAX package guards against with ``Precision.HIGHEST``
@@ -26,8 +26,6 @@ _MASK64 = (1 << 64) - 1
 
 
 def resolve_device(device) -> torch.device:
-    if device is None:
-        raise ValueError("device= is required (e.g. 'cuda' or 'cpu')")
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

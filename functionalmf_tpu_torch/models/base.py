@@ -62,7 +62,7 @@ class BayesianTensorFiltering:
     # draws collected on the device between copies to the host
     max_sweeps_per_call = 1024
 
-    def __init__(self, nrows, ncols, ndepth, *, device,
+    def __init__(self, nrows, ncols, ndepth, *, device="cuda",
                  nembeds=5, tf_order=2,
                  sigma2_init=None, sigma2_true=None,
                  sigma2_a=0.1, sigma2_b=0.1,

@@ -102,7 +102,9 @@ class _Phase:
 
 class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
     """Constrained nonconjugate BTF (reference factor.py:894-1017) with a
-    cellfn. ``device=`` is required."""
+    cellfn. It runs on the card (``device="cuda"``, the default) unless
+    the caller passes ``device="cpu"``; without a card the default
+    raises."""
 
     def __init__(self, nrows, ncols, ndepth, loglikelihood, Constraints,
                  ep_approx=None,

@@ -16,14 +16,17 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load_library", "build_log"]
+__all__ = ["NVCC_FLAGS", "build", "load_library", "declare", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 
+# -split-compile=0 optimises the kernels' instantiations on every core
+# (about half the build time of one nvcc on an 8-core host)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-split-compile=0",
+              "-Xptxas", "-v")
 
 _lib = None
 _log = ""
@@ -44,16 +47,17 @@ def _find_nvcc() -> str:
         "first use")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu unless a library of the same hash exists; return
-    its path."""
+def build(sources=None, name="fmf_kernels") -> Path:
+    """Compile ``sources`` (default csrc/*.cu) into lib<name>_<hash>.so
+    unless a library of the same hash exists; return its path."""
     global _log
-    sources = sorted(_SRC_DIR.glob("*.cu"))
+    sources = (sorted(_SRC_DIR.glob("*.cu")) if sources is None
+               else [Path(s) for s in sources])
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out = _BUILD_DIR / f"libfmf_kernels_{h.hexdigest()[:16]}.so"
+    out = _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     nvcc = _find_nvcc()
@@ -79,21 +83,25 @@ def build_log() -> str:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, declare the C signatures."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+    if _lib is None:
+        _lib = declare(ctypes.CDLL(str(build())))
+    return _lib
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the kernels' C entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
     # cell, cands, bt, y, mu, sig, row_chain, row_idx, out,
-    # R, G, k, C, nchains, nrows, stream (mu = sig = NULL: no EP)
+    # R, G, k, C, nchains, nrows, stream, cluster, chunk, smem
+    # (mu = sig = NULL: no EP)
     lib.fmf_row_ll.argtypes = [i, p, p, p, p, p, p, p, p,
-                               i, i, i, i, i, i, p]
+                               i, i, i, i, i, i, p, i, i, i]
     lib.fmf_row_ll.restype = i
     # cell, cands, w, y, mu, sig, pair_chain, pair_col, pair_t0, out,
-    # P, G, Tb, k, n, m, T, nchains, stream
+    # P, G, Tb, k, n, m, T, nchains, stream, cluster, chunk, smem
     lib.fmf_col_block_ll.argtypes = [i, p, p, p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, i, i, p]
+                                     i, i, i, i, i, i, i, i, p, i, i, i]
     lib.fmf_col_block_ll.restype = i
     lib.fmf_error_string.argtypes = [i]
     lib.fmf_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib

@@ -38,6 +38,7 @@ on the card. Every kernel launch adds one to ``launch_counts``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional
 
@@ -75,12 +76,17 @@ POISSON = CellFn(name="poisson", torch_fn=_poisson)
 # CellFn name -> the integer id of its functor in csrc/fused_ll.cu
 KERNEL_CELLS = {"poisson": 0}
 
-_GT = 16               # candidates per block tile (kGT in the .cu file)
 _MAX_K = 32
-# the H100's opt-in shared memory per block (227 KB) less the column
-# kernel's static reduction buffer
-_MAX_TILE_BYTES = 227 * 1024 - 256
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+# The kernels' launch constants (csrc/fused_ll.cu): warps a block (256
+# threads), candidates a pass (4 a lane), blocks a cluster at most.
+_WARPS, _PASS, _MAX_CLUSTER = 8, 128, 8
+_SMS = 132                  # streaming multiprocessors of an H100
+_SMEM_MAX = 232_448         # the H100's shared memory a block (227 KB)
+_SMEM_SOFT = 96 * 1024      # chunks shrink until two blocks fit an SM
+# the largest chunk: cells (row kernel), time slots (column kernel)
+_CHUNK_MAX = {"row": 1024, "col": 16}
 
 launch_counts = {"fused_row_ll": 0, "fused_col_block_ll": 0,
                  "fused_row_ll_ep": 0, "fused_col_block_ll_ep": 0}
@@ -140,6 +146,89 @@ def col_block_ll_plain(cands, w, y, pair_chain, pair_col, pair_t0, cell_fn,
         mu, sig = extras
         ll = ll - ep_log_density(tau, block(mu), block(sig))
     return ll.sum((-2, -1))
+
+
+# ----------------------------------------------------------------------
+# launch plan
+# ----------------------------------------------------------------------
+def _r4(x):
+    return (x + 3) // 4 * 4
+
+
+def _smem_bytes(kind, chunk, G, k, n, ep):
+    """Dynamic shared memory of one block (Layout in csrc/fused_ll.cu),
+    in 16-byte regions: the chunk's cell constants (float4), the warps'
+    and the block's partial sums, W (column kernel) and two stages of the
+    chunk's bytes."""
+    narr = 3 if ep else 1
+    if kind == "row":
+        cells, fixed = 4 * chunk, 0
+        stage = _r4(chunk * k) + narr * _r4(chunk)
+    else:
+        cells, fixed = 4 * chunk * n, _r4(n * k)
+        stage = min(G, _PASS) * _r4(chunk * k) + narr * n * _r4(chunk)
+    return 4 * (cells + _WARPS * _PASS + _PASS + fixed + 2 * stage)
+
+
+def _block_ranges(units, cluster):
+    """Units [lo, hi) of each block rank (block_range in csrc/fused_ll.cu):
+    groups of 4 units (of 1 where a block would get fewer than 4) split
+    evenly, so that a block's rows start on 16 bytes wherever the item's
+    do."""
+    g = 4 if units >= 4 * cluster else 1
+    groups = -(-units // g)
+    return tuple((min(units, g * (r * groups // cluster)),
+                  min(units, g * ((r + 1) * groups // cluster)))
+                 for r in range(cluster))
+
+
+def _cluster_size(items, cells):
+    """Blocks an item of ``cells`` cells is split over. An item of fewer
+    than 1024 cells stays in one block: there the cluster's barriers and
+    reduction cost more than the split saves. A larger item is split over
+    up to 8 blocks (the portable cluster), about 1.5 x 132 blocks in all.
+    (Chosen from device times on an H100 at the paths' shapes.)"""
+    if cells < 1024:
+        return 1
+    return max(1, min(_MAX_CLUSTER, -(-3 * _SMS // (2 * max(items, 1)))))
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(kind, items, units, G, k, n=0, ep=False):
+    """The kernels' launch plan, a pure function of the shapes.
+
+    kind "row": ``items`` rows of ``units`` = C cells each; "col":
+    ``items`` (chain, column, block) pairs of ``units`` = Tb time slots of
+    ``n`` cells each. Each item runs on a cluster of ``cluster`` blocks
+    (:func:`_cluster_size`, at most one a unit); block rank r takes units
+    ``blocks[r]`` and walks them in chunks of ``chunk`` through two
+    shared-memory stages, in candidate passes of 128 (``passes``: (first
+    candidate, count)). ``smem`` is the dynamic shared memory a block,
+    ``grid`` the blocks of the launch.
+
+    The chunk is the block's whole range up to 1024 cells (row kernel) or
+    16 time slots (column kernel), a multiple of 4 where the range is
+    longer: on an H100 a chunk costs a round trip to memory and three block
+    barriers, and fewer, larger chunks measured faster at every path
+    shape.
+    """
+    cluster = min(_cluster_size(items, units * max(n, 1)), units)
+    blocks = _block_ranges(units, cluster)
+    per_block = max(hi - lo for lo, hi in blocks)
+    most = _CHUNK_MAX[kind]
+    chunk = per_block if per_block <= most else \
+        _r4(-(-per_block // -(-per_block // most)))
+    while chunk > 4 and _smem_bytes(kind, chunk, G, k, n, ep) > _SMEM_SOFT:
+        chunk = _r4(chunk // 2)
+    smem = _smem_bytes(kind, chunk, G, k, n, ep)
+    if smem > _SMEM_MAX:
+        raise ValueError(
+            f"{kind} kernel: {smem} bytes of shared memory a block at the "
+            f"smallest chunk exceed the card's {_SMEM_MAX} (n={n}, k={k})")
+    return dict(grid=items * cluster, cluster=cluster, chunk=chunk,
+                smem=smem, blocks=blocks,
+                passes=tuple((g0, min(_PASS, G - g0))
+                             for g0 in range(0, G, _PASS)))
 
 
 # ----------------------------------------------------------------------
@@ -239,6 +328,7 @@ def fused_row_ll_batched(cands, bt, y, row_chain, row_idx, cell_fn,
     lib = load_library()
     mu_p, sig_p = _ep_ptrs(ex)
     name = "fused_row_ll_ep" if ex else "fused_row_ll"
+    plan = _launch_plan("row", R, C, G, k, ep=bool(ex))
     out = torch.empty((R, G), dtype=torch.float32, device=cands.device)
     with torch.cuda.device(cands.device):
         stream = torch.cuda.current_stream(cands.device).cuda_stream
@@ -246,7 +336,8 @@ def fused_row_ll_batched(cands, bt, y, row_chain, row_idx, cell_fn,
                               y.data_ptr(), mu_p, sig_p,
                               row_chain.data_ptr(), row_idx.data_ptr(),
                               out.data_ptr(), R, G, k, C, nch, y.shape[0],
-                              stream)
+                              stream, plan["cluster"], plan["chunk"],
+                              plan["smem"])
     _raise_on(lib, code, name)
     launch_counts[name] += 1
     return out
@@ -287,21 +378,20 @@ def fused_col_block_ll_batched(cands, w, y, pair_chain, pair_col, pair_t0,
         cell_fn)
     if k > _MAX_K:
         raise ValueError(f"k={k} > {_MAX_K}, the kernel's limit")
-    if _GT * Tb * k * 4 > _MAX_TILE_BYTES:
-        raise ValueError(f"block of Tb*k={Tb * k} values exceeds the "
-                         "kernel's shared-memory tile")
     from functionalmf_tpu_torch.ops._build import load_library
     lib = load_library()
     _, m, T = y.shape
     mu_p, sig_p = _ep_ptrs(ex)
     name = "fused_col_block_ll_ep" if ex else "fused_col_block_ll"
+    plan = _launch_plan("col", P, Tb, G, k, n, bool(ex))
     out = torch.empty((P, G), dtype=torch.float32, device=cands.device)
     with torch.cuda.device(cands.device):
         stream = torch.cuda.current_stream(cands.device).cuda_stream
         code = lib.fmf_col_block_ll(
             cell, cands.data_ptr(), w.data_ptr(), y.data_ptr(), mu_p, sig_p,
             pair_chain.data_ptr(), pair_col.data_ptr(), pair_t0.data_ptr(),
-            out.data_ptr(), P, G, Tb, k, n, m, T, nch, stream)
+            out.data_ptr(), P, G, Tb, k, n, m, T, nch, stream,
+            plan["cluster"], plan["chunk"], plan["smem"])
     _raise_on(lib, code, name)
     launch_counts[name] += 1
     return out

@@ -246,6 +246,25 @@ def test_out_of_slice_options_raise(kw, match):
         TorchModel(n, m, T, torch_loglik, C, device="cpu", **args)
 
 
+def test_device_defaults_to_the_card():
+    """Without ``device=`` the model runs on the card; where there is none
+    it raises and never falls back to the CPU. ``device="cpu"`` runs."""
+    n, m, T, k = 4, 3, 6, 2
+    Y, C, W0, V0, _ = _problem(1, n, m, T, k)
+    args = dict(nembeds=k, tf_order=0, W_init=W0, V_init=V0, v_block_size=3,
+                v_schedule="redblack", loglikelihood_cellfn=POISSON)
+    if torch.cuda.is_available():
+        assert TorchModel(n, m, T, torch_loglik, C,
+                          **args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TorchModel(n, m, T, torch_loglik, C, **args)
+    tm = TorchModel(n, m, T, torch_loglik, C, device="cpu", **args)
+    assert tm.device.type == "cpu"
+    res = tm.run_gibbs(Y, nburn=1, nthin=1, nsamples=2, verbose=False)
+    assert res["W"].shape == (2, n, k) and np.isfinite(res["W"]).all()
+
+
 @pytest.mark.parametrize("force_psd", [True, False])
 def test_w_prior_proposal_honours_force_psd(force_psd):
     """Without EP the W proposal's precision is I / sigma2, factored as

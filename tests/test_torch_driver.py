@@ -123,7 +123,14 @@ def test_out_of_slice_driver_options_raise():
 
 
 def test_device_is_required():
+    """A model built without ``device=`` runs on the card: where there is
+    none it raises, and never falls back to the CPU."""
     Y, C, kw = _data()
-    with pytest.raises(TypeError):
+    if torch.cuda.is_available():
+        m = TorchModel(N, M, T, _torch_loglik, C,
+                       loglikelihood_cellfn=POISSON, **kw)
+        assert m.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchModel(N, M, T, _torch_loglik, C, loglikelihood_cellfn=POISSON,
                    **kw)

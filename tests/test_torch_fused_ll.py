@@ -13,6 +13,7 @@ import torch
 
 from functionalmf_tpu.ops import fused_ll as jfl
 from functionalmf_tpu_torch.ops import fused_ll as F
+from functionalmf_tpu_torch.ops import fused_ll_bench as B
 
 
 def jax_poisson_cell(y, tau):
@@ -126,6 +127,85 @@ def test_plain_path_only_for_cpu_and_checks_shapes(rng):
                                            device="meta"), F.POISSON)
 
 
+# (kind, items, units, cells a slot) of every launch on the paths at
+# 19x19x228: the W update at nchains 1 and 4; the V updates' colour phase
+# at nchains 1 and 4, seq round, tail, joint; and a joint update at T=1000
+PATH_LAUNCHES = [("row", 19, 4332, 0), ("row", 76, 4332, 0),
+                 ("col", 266, 8, 19), ("col", 1064, 8, 19),
+                 ("col", 19, 8, 19), ("col", 19, 4, 19),
+                 ("col", 19, 228, 19), ("col", 19, 1000, 19)]
+
+
+def _covered_once(plan, units, G):
+    """What the kernels walk under ``plan`` (csrc/fused_ll.cu): each block
+    its unit range in chunks, each pass 32 lanes x 4 candidates."""
+    units_seen = np.zeros(units, int)
+    for lo, hi in plan["blocks"]:
+        assert hi > lo
+        for u0 in range(lo, hi, plan["chunk"]):
+            units_seen[u0:min(hi, u0 + plan["chunk"])] += 1
+    cands_seen = np.zeros(G, int)
+    for g0, gp in plan["passes"]:
+        assert 1 <= gp <= 128
+        for lane in range(32):
+            for j in range(4):
+                if lane + 32 * j < gp:
+                    cands_seen[g0 + lane + 32 * j] += 1
+    return (units_seen == 1).all() and (cands_seen == 1).all()
+
+
+@pytest.mark.parametrize("ep", [False, True])
+@pytest.mark.parametrize("kind,items,units,n", PATH_LAUNCHES)
+def test_launch_plan_covers_every_cell_and_candidate_once(kind, items,
+                                                          units, n, ep):
+    G, k = 101, 5
+    plan = F._launch_plan(kind, items, units, G, k, n, ep)
+    assert _covered_once(plan, units, G)
+    assert 1 <= plan["cluster"] <= 8 and len(plan["blocks"]) == \
+        plan["cluster"]
+    assert plan["grid"] == items * plan["cluster"]
+    # an item of 1024 cells or more is split to about 1.5 x 132 blocks in
+    # all, a smaller one stays in one block
+    cells = units * max(n, 1)
+    assert plan["cluster"] == 1 if cells < 1024 else \
+        plan["grid"] >= min(132, items * 8)
+    assert plan["smem"] == F._smem_bytes(kind, plan["chunk"], G, k, n, ep)
+    assert plan["smem"] <= 232_448
+
+
+@pytest.mark.parametrize("kind,units,n", [("row", 4332, 0), ("col", 228, 19),
+                                          ("col", 3, 19)])
+def test_launch_plan_runs_passes_for_wide_k_and_many_candidates(kind, units,
+                                                                n):
+    G, k = 300, 32
+    plan = F._launch_plan(kind, 5, units, G, k, n, True)
+    assert len(plan["passes"]) == 3
+    assert _covered_once(plan, units, G)
+    assert plan["smem"] <= 232_448
+
+
+def test_launch_plan_refuses_a_slot_too_wide_for_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        F._launch_plan("col", 19, 8, 101, 32, 4000, True)
+
+
+def test_work_counts_the_data_the_kernels_need():
+    """The bound's inputs from a tiny case: a NaN y drops its log and,
+    without EP, its pair; with EP it keeps its pair."""
+    cands = torch.ones(1, 3, 2)
+    bt = torch.ones(1, 4, 2)
+    y = torch.tensor([[1.0, float("nan"), 2.0, 3.0]])
+    idx = torch.zeros(1, dtype=torch.int32)
+    case = B.Case("fused_row_ll", "tiny", (cands, bt, y, idx, idx))
+    w = B.work(case)
+    assert w["pairs"] == 3 * 3 and w["sfu"] == 3 * 3
+    assert w["flops"] == 3 * (3 * 2 * 2 + 3 * B.POISSON_FLOPS)
+    assert w["bytes"] == 4 * (6 + 3 + 8 + 2 + 4)
+    ep = B.Case("fused_row_ll_ep", "tiny", (cands, bt, y, idx, idx),
+                (torch.ones_like(y), torch.ones_like(y)))
+    assert B.work(ep)["pairs"] == 3 * 4 and B.work(ep)["sfu"] == 3 * 3
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -186,3 +266,22 @@ def test_kernel_refuses_cell_without_specialisation(cuda_device):
                                torch.rand(1, 6, 2, device=cuda_device),
                                torch.rand(1, 6, device=cuda_device), idx,
                                idx, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["R=76,", "P=1064,", "Tb=1000"])
+def test_kernels_match_plain_at_the_wider_path_shapes(cuda_device, shape):
+    """nchains=4 (R=76; P=1064 colour phase) and a joint update at T=1000,
+    which the kernels no longer refuse: each kernel, with and without EP,
+    within rtol=1e-5 / atol=1e-3 of its plain version and bit-identical
+    over two launches."""
+    Y, W, V, pol = B.synthetic_problem()
+    cases = [c for c in B.path_cases(cuda_device, Y, W, V, pol)
+             if shape in c.shape]
+    assert len(cases) == 2
+    for case in cases:
+        got, again = case.kernel(), case.kernel()
+        want = case.plain()
+        torch.cuda.synchronize()
+        B.compare(got, want)
+        assert torch.equal(got, again)
