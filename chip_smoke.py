@@ -1,6 +1,8 @@
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU through its two paths, the
-red-black constrained-Poisson recipe and the GDELT politics benchmark with
-EP centring, and check them.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU through its paths and check
+them: the red-black constrained-Poisson recipe (grid and shrink GASS), the
+GDELT politics benchmark with EP centring and its NegBinom arm, and the
+conjugate and Polya-Gamma families (the flu-trends app, Gaussian and
+Binomial models at the GDELT width).
 
     python3 chip_smoke.py
 
@@ -21,15 +23,35 @@ Phases (any failure raises and exits non-zero before the last line):
      must beat the empirical mean's (the warm start alone does: the app's
      EP is overconfident on this tensor and holds the chain near it);
      sweeps/s from the app's cold timer and from 20 more warmed sweeps;
-  5. agreement: models run on the card (kernels) and on the CPU (plain
-     versions) must reach the same posterior mean of Mu: small models of
-     the red-black recipe and of the seq schedule with EP, and the
-     politics tensor at full width (seq, EP at a sigma the model does not
-     call overconfident), started at half the warm start's rates;
-  6. kernels: each of the four kernels (row and column-block, each with and
+  5. shrink: the red-black recipe with gass_method="shrink" at full width;
+     both non-EP kernels must launch (one candidate an item), every draw
+     finite and feasible;
+  6. Gaussian: the port's flu-trends app on its synthetic 50x1x370 tensor
+     (--nembeds 5 10, tf_order=2, 60 + 40 sweeps each) and a Gaussian model
+     at 19x19x228, k=5, nchains 1 and 4 (30 + 20 sweeps): finite draws, the
+     JAX package's keys and shapes (nu2 (S, 1)), in-sample RMSE below the
+     data's standard deviation, pivot repairs and failsafe events per
+     chain; the run fails if the failsafe events (Gershgorin shifts and
+     non-finite fallbacks) exceed 1% of the factored blocks;
+  7. Binomial on synthetic (Y, N) and NegBinom through the politics app's
+     --nb arm, both at 19x19x228, k=5: finite draws, R > 1, the JAX
+     package's keys and shapes, nan_fallbacks == 0;
+  8. agreement: models run on the card (kernels) and on the CPU (plain
+     versions) must reach the same posterior mean of Mu (rel < 0.12; 400
+     draws from 4 chains of 200 + 100 sweeps):
+     small models of the red-black recipe (grid and shrink), of the seq
+     schedule with EP and of the Gaussian, Binomial and NegBinom families,
+     and the politics tensor at full width (seq, EP at a sigma the model
+     does not call overconfident), started at half the warm start's rates;
+  9. where the time goes: ms a sweep of every phase of the new paths
+     (nu2 or Polya-Gamma draw, R moves, priors, W update, V update split
+     into band assembly, equilibrate + retile, factor scan, solve scans),
+     each with a synchronise around it;
+ 10. kernels: each of the four kernels (row and column-block, each with and
      without EP) against its plain PyTorch version on the card, at every
      shape the paths launch it at (functionalmf_tpu_torch/ops/
-     fused_ll_bench.py: 19x19x228, k=5, 101 candidates; the W update at
+     fused_ll_bench.py: 19x19x228, k=5, 101 candidates and again with one,
+     the shrink method's shape; the W update at
      nchains 1 and 4; column blocks of 8 in a colour phase at nchains 1
      and 4 and in a seq round, the 4-wide tail, the joint update's 228,
      and a joint update at T=1000 on synthetic counts), NaN y at held-out
@@ -38,11 +60,14 @@ Phases (any failure raises and exits non-zero before the last line):
      start; rtol=1e-5 / atol=1e-3 (the sums run in another order); two
      launches on the same inputs must agree bit for bit; each kernel's
      device time (torch.profiler), the wrapper's host time, its bound on
-     an H100 and its share of it. Last, because torch.profiler slows every
-     later launch of the process on the host.
-The line before the last is the kernels' JSON record, the last line
+     an H100 and its share of it; then the launches, device time and host
+     waits a sweep of the new paths (torch.profiler). Last, because
+     torch.profiler slows every later launch of the process on the host.
+After each group of phases a line gives the seconds elapsed so far. The
+line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -56,6 +81,10 @@ NROWS, NCOLS, NDEPTH, NEMBEDS = 19, 19, 228, 5
 NGRID = 100
 BLOCK = 8
 WARM_SWEEPS = 20
+# the small card-vs-CPU agreement runs: 400 draws from 4 chains of
+# 200 + 100 sweeps (a sweep costs the host the same at 1 chain and at 4)
+AGREE = dict(nchains=4, nburn=200, nsamples=100)
+RECIPE_SWEEPS = 100       # the red-black recipe's timed run at nchains=1
 REPLACES = {"fused_row_ll": "functionalmf_tpu/ops/fused_ll.py:80",
             "fused_col_block_ll": "functionalmf_tpu/ops/fused_ll.py:138"}
 # the shape of each kernel's record in the JSON line: the one its main
@@ -261,7 +290,7 @@ def slice_run(dev, Y, Con, W0, V0, nchains, nburn, nsamples):
     return res, launches
 
 
-def agreement_phase(dev, v_schedule, ep):
+def agreement_phase(dev, v_schedule, ep, gass_method="grid"):
     """A small model on the card (kernels) and on the CPU (plain versions):
     same posterior mean of Mu up to Monte Carlo error, the rel < 0.12
     criterion of tests/test_constrained.py:347 and 441."""
@@ -288,17 +317,19 @@ def agreement_phase(dev, v_schedule, ep):
             n_, m_, T_, poisson_loglik, C, device=d, nembeds=k_, tf_order=0,
             sigma2_init=0.5, lam2_init=0.1, W_init=W0, V_init=V0,
             gass_ngrid=24, v_block_size=3, v_schedule=v_schedule, seed=7,
-            ep_approx=ep_approx, loglikelihood_cellfn=F.POISSON)
-        res = mod.run_gibbs(Y, nburn=400, nthin=1, nsamples=400,
-                            verbose=False)
+            nchains=AGREE["nchains"],
+            ep_approx=ep_approx, gass_method=gass_method,
+            loglikelihood_cellfn=F.POISSON)
+        res = mod.run_gibbs(Y, nburn=AGREE["nburn"], nthin=1,
+                            nsamples=AGREE["nsamples"], verbose=False)
         mu = np.einsum("znk,zmtk->znmt", res["W"], res["V"])
         if mu.min() < -1e-5 or not np.isfinite(mu).all():
             fail(f"agreement run on {d}: infeasible or non-finite draws")
         means[str(d)] = mu.mean(0)
     rel = float(np.abs(means[str(dev)] - means["cpu"]).mean()
                 / np.sqrt((Mu ** 2).mean()))
-    print(f"agreement card vs cpu ({v_schedule}, ep={ep}): rel={rel:.4f} "
-          "(limit 0.12)")
+    print(f"agreement card vs cpu ({v_schedule}, ep={ep}, {gass_method}): "
+          f"rel={rel:.4f} (limit 0.12)")
     if not rel < 0.12:
         fail(f"card and CPU posteriors disagree (rel={rel:.4f})")
 
@@ -356,6 +387,401 @@ def politics_agreement(dev, pol, nburn=20, nsamples=20):
         fail(f"politics: card and CPU posteriors disagree (rel={rel:.4f})")
 
 
+def synthetic_mu():
+    """A smooth 19x19x228 mean tensor of rank 5 with entries of order 1
+    (seed 42): the Gaussian phase's truth and the Binomial phase's logits."""
+    rng = np.random.default_rng(42)
+    W = rng.normal(0, 1, size=(NROWS, NEMBEDS))
+    W[np.triu_indices(NEMBEDS, k=1)] = 0
+    V = np.cumsum(rng.normal(0, 0.08, size=(NCOLS, NDEPTH, NEMBEDS)), axis=1) \
+        + rng.normal(0, 0.5, size=(NCOLS, 1, NEMBEDS))
+    return np.einsum("nk,mtk->nmt", W, V), rng
+
+
+def family_shapes(n, m, T, k, nchains, nsamples, nu2, R=None):
+    """The JAX package's results dict of a conjugate-family model
+    (tf_order=2): chain-major draws, scalars as (S, 1)."""
+    S = nchains * nsamples
+    out = {"W": (S, n, k), "V": (S, m, T, k), "sigma2": (S, 1),
+           "lam2": (S, 1), "Tau2": (S, m, 3 * T - 1), "nu2": (S,) + nu2,
+           "nan_fallbacks": (nchains,), "pivot_repairs": (nchains,)}
+    if R is not None:
+        out["R"] = (S,) + R
+    if nchains > 1:
+        out["rhat"] = None
+    return out
+
+
+def check_family(tag, res, want, nsweeps, inf_ok=()):
+    """Keys, shapes and finite draws (``inf_ok``: keys that may hold inf,
+    the Binomial nu2 at cells without data), and the failsafe events per
+    chain: they must stay below 1% of the blocks the V update factored."""
+    if set(res) != set(want):
+        fail(f"{tag}: results keys {sorted(res)} != {sorted(want)}")
+    for key, shape in want.items():
+        if shape is None:
+            continue
+        if tuple(res[key].shape) != shape:
+            fail(f"{tag}: results[{key!r}] has shape {res[key].shape}, "
+                 f"expected {shape}")
+        bad = np.isnan(res[key]) if key in inf_ok else ~np.isfinite(res[key])
+        if bad.any():
+            fail(f"{tag}: non-finite draws in {key}")
+    nch = want["nan_fallbacks"][0]
+    m, T = want["V"][1], want["V"][2]
+    blocks = nsweeps * m * -(-T // 8)                 # a chain
+    print(f"{tag}: pivot_repairs per chain {res['pivot_repairs'].tolist()}, "
+          f"failsafe events (Gershgorin shifts + non-finite fallbacks) per "
+          f"chain {res['nan_fallbacks'].tolist()}, of {blocks} factored "
+          f"blocks a chain in {nsweeps} sweeps, {nch} chain(s)")
+    if (res["nan_fallbacks"] > 0.01 * blocks).any():
+        fail(f"{tag}: failsafe events above 1% of the factored blocks: a "
+             "materially perturbed V conditional")
+
+
+def timed_run(model, data, nburn, nsamples):
+    """run_gibbs after a 2-sweep warm-up; returns (results, sweeps/s)."""
+    model.run_gibbs(data, nburn=1, nthin=1, nsamples=1, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.run_gibbs(data, nburn=nburn, nthin=1, nsamples=nsamples,
+                          verbose=False)
+    torch.cuda.synchronize()
+    return res, (nburn + nsamples) / (time.perf_counter() - t0)
+
+
+def flutrends_phase():
+    """The port's flu-trends app through its entry point, on the card."""
+    from functionalmf_tpu_torch.apps.flutrends import benchmark
+    nburn, nsamples = 60, 40
+    with tempfile.TemporaryDirectory() as empty:      # the synthetic tensor
+        args = benchmark.parse_args(
+            ["--device", "cuda", "--data-dir", empty, "--nembeds", "5", "10",
+             "--nburn", str(nburn), "--nthin", "1", "--nsamples",
+             str(nsamples)])
+        t0 = time.perf_counter()
+        table, fits = benchmark.run(args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        Y = benchmark.load_data(empty, np.random.default_rng(args.seed))[0]
+    if Y.shape != (50, 1, 370):
+        fail(f"flutrends: data shape {Y.shape}")
+    for k, row in table.items():
+        res, model = fits[k]
+        if model.device.type != "cuda":
+            fail("flutrends: the model is not on the card")
+        check_family(f"flutrends k={k}", res,
+                     family_shapes(50, 1, 370, k, 1, nsamples, (1,)),
+                     nburn + nsamples)
+        if not all(np.isfinite(v) for v in row.values()):
+            fail(f"flutrends k={k}: non-finite report {row}")
+        if not row["rmse_in"] < Y.std():
+            fail(f"flutrends k={k}: in-sample RMSE {row['rmse_in']:.4f} is "
+                 f"not below the data's standard deviation {Y.std():.4f}")
+        print(f"flutrends k={k}: " + " ".join(
+            f"{a}={b:.4f}" for a, b in row.items())
+            + f" nu2={res['nu2'].mean():.4f} (data sd {Y.std():.4f})")
+    print(f"flutrends: {2 * (nburn + nsamples)} sweeps and the report in "
+          f"{dt:.3f}s (cold: the first sweeps load cuSOLVER)")
+    return Y
+
+
+def gaussian_phase(dev, nchains, nburn=30, nsamples=20):
+    from functionalmf_tpu_torch import GaussianBayesianTensorFiltering
+    Mu, rng = synthetic_mu()
+    Y = Mu[..., None] + rng.normal(0, 0.5, size=Mu.shape + (2,))
+    Y[rng.random((NROWS, NCOLS)) < 0.1] = np.nan
+    model = GaussianBayesianTensorFiltering(
+        NROWS, NCOLS, NDEPTH, device=dev, nembeds=NEMBEDS, tf_order=2,
+        sigma2_init=0.5, lam2_init=0.1, nu2_init=1, seed=0, nchains=nchains)
+    res, rate = timed_run(model, Y, nburn, nsamples)
+    tag = f"gaussian nchains={nchains}"
+    check_family(tag, res, family_shapes(NROWS, NCOLS, NDEPTH, NEMBEDS,
+                                         nchains, nsamples, (1,)),
+                 nburn + nsamples + 2)
+    mu = np.einsum("snk,smtk->nmt", res["W"], res["V"]) / res["W"].shape[0]
+    obs = ~np.isnan(Y[..., 0])
+    rmse = float(np.sqrt(np.mean((Y.mean(-1)[obs] - mu[obs]) ** 2)))
+    sd = float(np.nanstd(Y))
+    print(f"{tag}: sweeps={nburn + nsamples} sweeps_per_sec={rate:.3f} "
+          f"rmse_in={rmse:.4f} (data sd {sd:.4f}) "
+          f"nu2={res['nu2'].mean():.4f} (truth 0.25)")
+    if not rmse < sd:
+        fail(f"{tag}: in-sample RMSE {rmse:.4f} is not below the data's "
+             f"standard deviation {sd:.4f}")
+    return model, Y
+
+
+def binomial_phase(dev, nburn=25, nsamples=15):
+    from functionalmf_tpu_torch import BinomialBayesianTensorFiltering
+    Mu, rng = synthetic_mu()
+    N = rng.choice([5.0, 20.0, 80.0], size=Mu.shape)    # both PG branches
+    Y = rng.binomial(N.astype(int), 1 / (1 + np.exp(-Mu))).astype(float)
+    hold = rng.random((NROWS, NCOLS)) < 0.1
+    Y[hold] = np.nan
+    N[hold] = np.nan
+    model = BinomialBayesianTensorFiltering(
+        NROWS, NCOLS, NDEPTH, device=dev, nembeds=NEMBEDS, tf_order=2,
+        sigma2_init=0.5, lam2_init=0.1, seed=0)
+    res, rate = timed_run(model, (Y, N), nburn, nsamples)
+    check_family("binomial", res, family_shapes(
+        NROWS, NCOLS, NDEPTH, NEMBEDS, 1, nsamples,
+        (NROWS, NCOLS, NDEPTH)), nburn + nsamples + 2, inf_ok=("nu2",))
+    if res["nan_fallbacks"].sum() != 0:
+        fail(f"binomial: nan_fallbacks {res['nan_fallbacks'].tolist()}")
+    if not np.isinf(res["nu2"][:, hold]).all():
+        fail("binomial: nu2 is not inf at the cells without data")
+    P = 1 / (1 + np.exp(-np.clip(np.einsum(
+        "snk,smtk->snmt", res["W"], res["V"]), -10, 10))).mean(0)
+    err = float(np.abs(P - 1 / (1 + np.exp(-Mu)))[~hold].mean())
+    print(f"binomial: sweeps={nburn + nsamples} sweeps_per_sec={rate:.3f} "
+          f"mean |P_hat - P| = {err:.4f}")
+    if not err < 0.15:
+        fail(f"binomial: mean |P_hat - P| = {err:.4f}, 0.15 at most expected")
+    return model, (Y, N)
+
+
+def negbinom_phase(nburn=10, nsamples=10):
+    """NegBinom through the politics app's --nb arm, on the card."""
+    from functionalmf_tpu_torch.apps.politics import benchmark
+    with tempfile.TemporaryDirectory() as empty:
+        args = benchmark.parse_args(
+            ["--no-pgds", "--nb", "--device", "cuda", "--data-dir", empty,
+             "--nthin", "1", "--nburn", str(nburn), "--nsamples",
+             str(nsamples)])
+        t0 = time.perf_counter()
+        out = benchmark.run(args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    res, model = out.nb_results, out.nb_model
+    if model.device.type != "cuda":
+        fail("negbinom: the model is not on the card")
+    check_family("negbinom (politics --nb)", res, family_shapes(
+        NROWS, NCOLS, NDEPTH, NEMBEDS, 1, nsamples, (NROWS, NCOLS, NDEPTH),
+        R=(1, 1, 1)), nburn + nsamples, inf_ok=("nu2",))
+    if res["nan_fallbacks"].sum() != 0:
+        fail(f"negbinom: nan_fallbacks {res['nan_fallbacks'].tolist()}")
+    if not (res["R"] > 1).all():
+        fail(f"negbinom: R <= 1 in a draw (min {res['R'].min()})")
+    row = out.table["NB-BTF"]
+    if not all(np.isfinite(v) for v in row.values()):
+        fail(f"negbinom: non-finite report {row}")
+    print(f"negbinom (politics --nb): both arms, {2 * (nburn + nsamples)} "
+          f"sweeps and the report in {dt:.3f}s; R={res['R'].mean():.4f} "
+          + " ".join(f"{a}={b:.4f}" for a, b in row.items()))
+    return model
+
+
+def shrink_phase(dev, Y, Con, W0, V0, nburn=10, nsamples=10):
+    """The red-black recipe with gass_method="shrink" at full width."""
+    from functionalmf_tpu_torch import (
+        ConstrainedNonconjugateBayesianTensorFiltering as Model)
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    model = Model(
+        NROWS, NCOLS, NDEPTH, poisson_loglik, Con, device=dev,
+        nembeds=NEMBEDS, tf_order=2, sigma2_init=0.5, lam2_init=0.1,
+        W_init=W0, V_init=V0, gass_method="shrink", seed=0,
+        v_schedule="redblack", v_block_size=BLOCK,
+        loglikelihood_cellfn=F.POISSON)
+    model.run_gibbs(Y, nburn=1, nthin=1, nsamples=1, verbose=False)
+    torch.cuda.synchronize()
+    F.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.run_gibbs(Y, nburn=nburn, nthin=1, nsamples=nsamples,
+                          verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(F.launch_counts)
+    nsweeps = nburn + nsamples
+    check_launches("shrink", launches, ("fused_row_ll", "fused_col_block_ll"))
+    check_results("shrink", res, model, 1, nsamples)
+    moved = np.abs(np.diff(res["V"], axis=0)).reshape(nsamples - 1, -1)
+    if not (moved.max(axis=1) > 0).all():
+        fail("shrink: two successive V draws are equal")
+    # an update is 1 launch for the current points and 1 an iteration
+    w_it = launches["fused_row_ll"] / nsweeps - 1
+    v_it = launches["fused_col_block_ll"] / (3 * nsweeps) - 1
+    print(f"shrink: sweeps={nsweeps} seconds={dt:.3f} "
+          f"sweeps_per_sec={nsweeps / dt:.3f}; launches "
+          f"{json.dumps(launches)}: {w_it:.2f} shrink iterations a W "
+          f"update, {v_it:.2f} a V round (each ends on a host sync)")
+    return model
+
+
+def family_agreement(dev, family):
+    """A small model of a conjugate family on the card and on the CPU: the
+    posterior mean of Mu (of the success probability for the Polya-Gamma
+    families) within rel < 0.12 of its RMS."""
+    import functionalmf_tpu_torch as P
+    n_, m_, T_, k_ = 8, 6, 12, 2
+    rng = np.random.default_rng(9)
+    W = rng.normal(size=(n_, k_))
+    W[np.triu_indices(k_, 1)] = 0
+    V = np.cumsum(rng.normal(0, 0.4, size=(m_, T_, k_)), axis=1)
+    Mu = np.einsum("nk,mtk->nmt", W, V)
+    kw = dict(nembeds=k_, tf_order=1, sigma2_init=0.5, lam2_init=0.1, seed=7,
+              nchains=AGREE["nchains"])
+    link = lambda x: 1 / (1 + np.exp(-np.clip(x, -10, 10)))
+    if family == "gaussian":
+        cls, kw = P.GaussianBayesianTensorFiltering, dict(kw, nu2_init=1.0)
+        data = Mu[..., None] + rng.normal(0, 0.5, size=Mu.shape + (3,))
+        stat, truth = (lambda mu, res: mu), Mu
+    elif family == "binomial":
+        cls = P.BinomialBayesianTensorFiltering
+        N = np.full(Mu.shape, 20.0)
+        data = (rng.binomial(20, link(Mu)).astype(float), N)
+        stat, truth = (lambda mu, res: link(mu)), link(Mu)
+    else:
+        cls = P.NegativeBinomialBayesianTensorFiltering
+        kw = dict(kw, rdims=(1, 2))
+        data = rng.poisson(rng.gamma(3.0, np.exp(0.5 * Mu)[..., None] / 3.0,
+                                     size=Mu.shape + (3,))).astype(float)
+        stat = lambda mu, res: np.log(res["R"] * link(mu) / (1 - link(mu)))
+        truth = 0.5 * Mu
+    means = {}
+    for d in (dev, "cpu"):
+        res = cls(n_, m_, T_, device=d, **kw).run_gibbs(
+            data, nburn=AGREE["nburn"], nthin=1, nsamples=AGREE["nsamples"],
+            verbose=False)
+        mu = np.einsum("znk,zmtk->znmt", res["W"], res["V"])
+        s = stat(mu, res)
+        if not np.isfinite(s).all():
+            fail(f"{family} agreement run on {d}: non-finite draws")
+        if res["nan_fallbacks"].sum() != 0:
+            fail(f"{family} agreement run on {d}: nan_fallbacks "
+                 f"{res['nan_fallbacks'].tolist()}")
+        means[len(means)] = s.mean(0)
+    scale = np.sqrt((truth ** 2).mean())
+    rel = float(np.abs(means[0] - means[1]).mean() / scale)
+    fit = float(np.abs(means[0] - truth).mean() / scale)
+    print(f"agreement card vs cpu ({family}): rel={rel:.4f} (limit 0.12); "
+          f"card vs truth {fit:.4f}")
+    if not rel < 0.12:
+        fail(f"{family}: card and CPU posteriors disagree (rel={rel:.4f})")
+
+
+# where a sweep's time goes. (attribute of the model, phase label):
+MODEL_PHASES = (
+    ("_update_nu2", "nu2 draw"),
+    ("_pg_update", "PG draw"),
+    ("_update_R", "R moves"),
+    ("_update_sigma2", "prior: sigma2"),
+    ("_update_tau2", "prior: Tau2"),
+    ("_update_lam2", "prior: lam2"),
+    ("_gaussian_update_W", "W update"),
+    ("_gaussian_update_V", "V update"),
+    ("_v_bands", "V: band assembly"),
+    ("_update_W_gass", "W update"),
+    ("_update_V_gass", "V update"),
+    ("_interweave_scales", "scale moves"),
+)
+# (function of ops/banded.py, phase label)
+BANDED_PHASES = (
+    ("equilibrate_bands", "V: equilibrate + retile"),
+    ("retile_bands", "V: equilibrate + retile"),
+    ("_block_banded_cholesky_once", "V: factor scan"),
+    ("block_banded_solve_lower", "V: solve scans"),
+    ("block_banded_solve_upper", "V: solve scans"),
+)
+# the phases every model of a path must show: a renamed method or routine
+# fails the run and cannot drop a column unnoticed
+PRIOR_PHASES = {"prior: sigma2", "prior: Tau2", "prior: lam2"}
+BANDED_SWEEP = PRIOR_PHASES | {"W update", "V update", "V: band assembly"} \
+    | {label for _, label in BANDED_PHASES}
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+@contextlib.contextmanager
+def timed(owner, name, label, totals, instance):
+    """Wrap owner.name in a timer with a synchronise before and after."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        totals[label] = totals.get(label, 0.0) + time.perf_counter() - t0
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        if instance:
+            delattr(owner, name)      # the instance attribute hid the method
+        else:
+            setattr(owner, name, fn)
+
+
+def run_sweeps(model, data, sweeps):
+    model.run_gibbs(data, nburn=sweeps - 1, nthin=1, nsamples=1,
+                    verbose=False)
+    torch.cuda.synchronize()
+
+
+def where_time_goes(tag, model, data, expect, sweeps=10, warm=2):
+    """ms a sweep of each phase the model runs and of the sweep as timed.
+    The timers make the sweep slower than an untimed one: the figures say
+    where the time goes, not how fast the sweep is. Phases nest: the V
+    update holds its "V: ..." parts."""
+    from functionalmf_tpu_torch.ops import banded
+    run_sweeps(model, data, warm)
+    totals = {}
+    with contextlib.ExitStack() as stack:
+        for name, label in MODEL_PHASES:
+            if hasattr(model, name):
+                stack.enter_context(timed(model, name, label, totals, True))
+        for name, label in BANDED_PHASES:
+            stack.enter_context(timed(banded, name, label, totals, False))
+        t0 = time.perf_counter()
+        run_sweeps(model, data, sweeps)
+        totals["sweep (timed)"] = time.perf_counter() - t0
+    ms = {label: 1e3 * t / sweeps for label, t in totals.items()}
+    print(f"phases {tag} (ms a sweep, {sweeps} sweeps, a synchronise around "
+          f"each): " + json.dumps({k: round(v, 3) for k, v in ms.items()}))
+    if not expect <= set(ms):
+        fail(f"phases {tag}: no time for {sorted(expect - set(ms))}")
+    return ms
+
+
+def launch_counts_phase(tag, model, data, sweeps=3, warm=2):
+    """A sweep's device kernels, device time, wall time and host-side
+    waits from torch.profiler: syncs (stream, device and event
+    synchronises), memcpy (cudaMemcpyAsync calls: the bool() and .cpu()
+    reads wait in these) and item_reads (aten::_local_scalar_dense)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run_sweeps(model, data, warm)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_sweeps(model, data, sweeps)
+        wall = time.perf_counter() - t0
+    kernels = device_us = syncs = memcpy = items = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            if not ev.key.lower().startswith(("memcpy", "memset")):
+                kernels += ev.count
+            device_us += ev.self_device_time_total
+        elif ev.key in SYNC_CALLS:
+            syncs += ev.count
+        elif ev.key == "cudaMemcpyAsync":
+            memcpy += ev.count
+        elif ev.key == "aten::_local_scalar_dense":
+            items += ev.count
+    out = dict(kernels=kernels / sweeps, device_ms=device_us / sweeps / 1e3,
+               wall_ms=wall / sweeps * 1e3, device_busy=device_us / 1e6 / wall,
+               syncs=syncs / sweeps, memcpy=memcpy / sweeps,
+               item_reads=items / sweeps, sweeps=sweeps)
+    print(f"profile {tag} (a sweep, torch.profiler over {sweeps} sweeps): "
+          + json.dumps({k: round(v, 3) for k, v in out.items()}))
+    if out["kernels"] <= 0:
+        fail(f"profile {tag}: torch.profiler saw no device kernel")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a GPU")
@@ -366,6 +792,10 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
+
+    def stamp(phase):
+        print(f"elapsed after {phase}: {time.perf_counter() - t_start:.1f}s")
 
     from functionalmf_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -378,10 +808,12 @@ def main():
 
     Y, Con, W0, V0, _ = bench_data()
     pol = politics_problem()
+    stamp("the build and the politics warm start")
 
-    _, l1 = slice_run(dev, Y, Con, W0, V0, nchains=1, nburn=100,
-                      nsamples=100)
+    _, l1 = slice_run(dev, Y, Con, W0, V0, nchains=1, nburn=RECIPE_SWEEPS // 2,
+                      nsamples=RECIPE_SWEEPS // 2)
     slice_run(dev, Y, Con, W0, V0, nchains=4, nburn=20, nsamples=20)
+    stamp("the red-black recipe")
     # the politics app's default schedule first: its launches are the EP
     # kernels' record
     l_ep, s_ep = politics_run("seq nchains=1", ["--nburn", "30"], 1, 30,
@@ -390,19 +822,59 @@ def main():
                  ["--v-schedule", "redblack", "--nburn", "20"], 4, 20, pol[0])
     politics_run("joint nchains=1", ["--v-block-size", "0", "--nburn", "3"],
                  1, 3, pol[0])
+    stamp("the politics app")
+    shrink_model = shrink_phase(dev, Y, Con, W0, V0)
+    flu_Y = flutrends_phase()
+    stamp("shrink and the flu-trends app")
+    gauss_model, gauss_Y = gaussian_phase(dev, nchains=1)
+    gaussian_phase(dev, nchains=4)
+    binom_model, binom_data = binomial_phase(dev)
+    nb_model = negbinom_phase()
+    stamp("the Gaussian, Binomial and NegBinom models")
     agreement_phase(dev, "redblack", ep=False)
+    agreement_phase(dev, "redblack", ep=False, gass_method="shrink")
     agreement_phase(dev, "seq", ep=True)
+    stamp("the constrained model's small agreement runs")
+    for family in ("gaussian", "binomial", "negbinom"):
+        family_agreement(dev, family)
+    stamp("the families' small agreement runs")
     politics_agreement(dev, pol)
+    stamp("the politics agreement")
+    # where the time goes on the new paths, with the models of the phases
+    # above (warmed); the flu-trends shape through a model of its own
+    from functionalmf_tpu_torch import GaussianBayesianTensorFiltering
+    flu_model = GaussianBayesianTensorFiltering(
+        50, 1, 370, device=dev, nembeds=10, tf_order=2, sigma2_init=1,
+        lam2_init=0.1, nu2_init=1, seed=42)
+    profiled = (
+        ("gaussian 19x19x228 k=5", gauss_model, gauss_Y,
+         BANDED_SWEEP | {"nu2 draw"}),
+        ("flutrends 50x1x370 k=10", flu_model, flu_Y,
+         BANDED_SWEEP | {"nu2 draw"}),
+        ("binomial 19x19x228 k=5", binom_model, binom_data,
+         BANDED_SWEEP | {"PG draw"}),
+        ("negbinom 19x19x228 k=5", nb_model, pol[0],
+         BANDED_SWEEP | {"PG draw", "R moves"}),
+        ("shrink recipe 19x19x228 k=5", shrink_model, Y,
+         PRIOR_PHASES | {"W update", "V update", "scale moves"}))
+    for tag, model, data, expect in profiled:
+        where_time_goes(tag, model, data, expect)
+    stamp("the phase times")
     # last: torch.profiler, which times the kernels, slows every later
     # launch of the process on the host; the recipe once more shows how much
     records = kernel_phase(dev, Y, W0, V0, pol)
+    stamp("the kernel phase")
+    for tag, model, data, _ in profiled:
+        launch_counts_phase(tag, model, data)
+    stamp("the launch profiles")
     print("red-black recipe again, after the profiled kernel phase:")
     slice_run(dev, Y, Con, W0, V0, nchains=1, nburn=20, nsamples=20)
 
     # launches and launches per sweep of each kernel's main path: the
-    # bench.py recipe at nchains=1 (200 sweeps), politics seq (EP)
+    # bench.py recipe at nchains=1, politics seq (EP)
     launches = {**l1, **{k: v for k, v in l_ep.items() if k.endswith("_ep")}}
-    sweeps = {k: (s_ep if k.endswith("_ep") else 200) for k in launches}
+    sweeps = {k: (s_ep if k.endswith("_ep") else RECIPE_SWEEPS)
+              for k in launches}
     kernels = []
     for name in RECORD_SHAPE:
         mine = [r for r in records if r["name"] == name]

@@ -1,23 +1,42 @@
 """functionalmf_tpu_torch: the PyTorch / CUDA port of functionalmf_tpu.
 
 The port runs ``ConstrainedNonconjugateBayesianTensorFiltering`` with a
-cell log-likelihood and linear constraints: GASS over W rows, the blocked
-V update under the red-black, sequential or joint schedule, optional EP
-centring, and the exact scale moves; and the GDELT politics benchmark
-(``apps/politics``). Its GASS candidate log-likelihoods run in two
-hand-written CUDA kernels on the card, each with and without EP
-(``ops/fused_ll.py``, ``csrc/fused_ll.cu``), and in their plain PyTorch
-versions on the CPU. The package imports torch, numpy and scipy, never
+cell log-likelihood and linear constraints: GASS (grid or shrink) over W
+rows, the blocked V update under the red-black, sequential or joint
+schedule, optional EP centring, and the exact scale moves. Its GASS
+candidate log-likelihoods run in two hand-written CUDA kernels on the
+card, each with and without EP (``ops/fused_ll.py``,
+``csrc/fused_ll.cu``), and in their plain PyTorch versions on the CPU.
+It also runs the conjugate and Polya-Gamma families,
+``GaussianBayesianTensorFiltering``, ``BinomialBayesianTensorFiltering``
+and ``NegativeBinomialBayesianTensorFiltering``, whose V update factors a
+block-banded precision (``ops/banded.py``); these are plain PyTorch on
+the CPU and on the card alike. Apps: the GDELT politics benchmark
+(``apps/politics``) and the flu-trends benchmark (``apps/flutrends``). The package imports torch, numpy and scipy, never
 jax and never ``functionalmf_tpu``.
 """
 from functionalmf_tpu_torch.models.base import (BayesianTensorFiltering,
                                                 packed_w_len, tril_mask)
+from functionalmf_tpu_torch.models.binomial import (
+    BinomialBayesianTensorFiltering)
 from functionalmf_tpu_torch.models.constrained import (
     ConstrainedNonconjugateBayesianTensorFiltering)
+from functionalmf_tpu_torch.models.gaussian import (
+    GaussianBayesianTensorFiltering)
+from functionalmf_tpu_torch.models.negbinom import (
+    NegativeBinomialBayesianTensorFiltering)
+from functionalmf_tpu_torch.ops.mvn import (
+    sample_mvn, sample_mvn_from_covariance, sample_mvn_from_precision)
+from functionalmf_tpu_torch.ops.polyagamma import polya_gamma
 from functionalmf_tpu_torch.ops.fused_ll import POISSON, CellFn
 
 __all__ = ["BayesianTensorFiltering",
+           "GaussianBayesianTensorFiltering",
+           "BinomialBayesianTensorFiltering",
+           "NegativeBinomialBayesianTensorFiltering",
            "ConstrainedNonconjugateBayesianTensorFiltering",
+           "polya_gamma", "sample_mvn", "sample_mvn_from_precision",
+           "sample_mvn_from_covariance",
            "CellFn", "POISSON", "tril_mask", "packed_w_len"]
 
 __version__ = "0.1.0"

@@ -6,8 +6,9 @@ Cooperate" monthly count tensor with 10% of nation pairs held out, and
 reports in/out-of-sample RMSE / MAE / Poisson log-likelihood against the
 empirical mean. The warm start is an NMF of the training tensor (or of a
 precomputed PGDS posterior mean, ``--pgds-mu``); the EP centres come from
-that NMF (``ep_from_nmf``). The in-process PGDS arm and the NegBinom arm
-(``--nb``) are not ported yet.
+that NMF (``ep_from_nmf``). ``--nb`` also fits the NegBinom BTF arm
+(global dispersion, logit link, Mu = R P / (1 - P)). The in-process PGDS
+arm is not ported yet.
 
     python -m functionalmf_tpu_torch.apps.politics.benchmark --no-pgds \\
         --device cuda
@@ -28,7 +29,8 @@ import numpy as np
 import torch
 
 from functionalmf_tpu_torch import (
-    ConstrainedNonconjugateBayesianTensorFiltering, POISSON)
+    ConstrainedNonconjugateBayesianTensorFiltering,
+    NegativeBinomialBayesianTensorFiltering, POISSON)
 from functionalmf_tpu_torch.utils.nmf import tensor_nmf
 
 # The Poisson cell without its y-only term, 0 on NaN (politics/
@@ -122,8 +124,8 @@ def parse_args(argv=None):
                              "chain-major and metrics.json records the "
                              "split-R-hat across chains")
     parser.add_argument("--nb", action="store_true",
-                        help="also fit the NegBinom BTF arm (not ported "
-                             "yet)")
+                        help="also fit the NegBinom BTF arm (reference "
+                             "politics/benchmark.py:139-158)")
     return parser.parse_args(argv)
 
 
@@ -132,7 +134,7 @@ class PoliticsRun:
     """What one run of the benchmark produced: the metrics table, the
     results dict of run_gibbs, the fitted model, its warm start (W0, V0)
     and the host-clock seconds of the NMF warm start and of the Gibbs
-    sampler."""
+    sampler; with ``--nb`` the NegBinom arm's results and model too."""
     table: dict
     results: dict
     model: ConstrainedNonconjugateBayesianTensorFiltering
@@ -140,6 +142,8 @@ class PoliticsRun:
     nmf_seconds: float
     gibbs_seconds: float
     nsweeps: int
+    nb_results: dict = None
+    nb_model: NegativeBinomialBayesianTensorFiltering = None
 
 
 def run(args):
@@ -149,10 +153,6 @@ def run(args):
         raise NotImplementedError(
             "the in-process PGDS arm is not ported yet (ROADMAP.md, Queue 1 "
             "item 13): pass --no-pgds or --pgds-mu")
-    if args.nb:
-        raise NotImplementedError(
-            "the NegBinom BTF arm (--nb) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 10)")
     rng = np.random.default_rng(args.seed)
     Y, Y_train, to_hold = load_data(args.data_dir, rng)
     nrows, ncols, ndepth = Y.shape
@@ -234,6 +234,24 @@ def run(args):
     report("Empirical mean", Mu_emp)
     report("BTF", Mu_hat)
 
+    nb_results = nb_model = None
+    if args.nb:
+        # the NB-BTF variant (politics/benchmark.py:139-158): global
+        # dispersion (rdims=(0,1,2)), logit link, Mu = R P / (1 - P)
+        nb_model = NegativeBinomialBayesianTensorFiltering(
+            nrows, ncols, ndepth, device=args.device, nembeds=nembeds,
+            tf_order=2, sigma2_init=0.5, lam2_init=0.1, nu2_init=1,
+            rdims=(0, 1, 2), seed=args.seed)
+        print("Running NB-BTF Gibbs sampler")
+        nb_results = nb_model.run_gibbs(
+            Y_train, nburn=args.nburn, nthin=args.nthin,
+            nsamples=args.nsamples, print_freq=10, verbose=True)
+        psi = np.clip(np.einsum("znk,zmtk->znmt", nb_results["W"],
+                                nb_results["V"]), -10, 10)
+        P = 1.0 / (1.0 + np.exp(-psi))
+        Rs = nb_results["R"].reshape(nb_results["R"].shape[0], 1, 1, 1)
+        report("NB-BTF", Rs * P / (1 - P))
+
     if results.get("rhat"):     # empty below 4 samples a chain
         table["BTF"]["rhat_max"] = float(results["rhat"]["max"])
         table["BTF"].update({f"rhat_{k}": float(v)
@@ -248,8 +266,9 @@ def run(args):
             json.dump({k: {kk: float(vv) for kk, vv in v.items()}
                        for k, v in table.items()}, f, indent=2)
     return PoliticsRun(table=table, results=results, model=model,
-                       warm_start=(W0, V0), nmf_seconds=nmf_seconds, gibbs_seconds=gibbs_seconds,
-                       nsweeps=nsweeps)
+                       warm_start=(W0, V0), nmf_seconds=nmf_seconds,
+                       gibbs_seconds=gibbs_seconds, nsweeps=nsweeps,
+                       nb_results=nb_results, nb_model=nb_model)
 
 
 def main(argv=None):

@@ -13,7 +13,9 @@ variable, ``X_true`` fixes it), the prior updates of sigma2, Tau2 and
 lam2, the non-finite guard, ``run_gibbs(data, nburn, nthin, nsamples,
 verbose)`` and its results dict (scalars as (S, 1), chains concatenated
 chain-major, ``nan_fallbacks``, ``pivot_repairs`` and, with several
-chains, ``rhat``). Not ported in this slice: host callbacks, traced
+chains, ``rhat``). The families add their own state (``nu2``, ``R``)
+after this constructor, each from its own init generator
+(``_next_init_gen``) taken in a fixed order. Not ported: host callbacks, traced
 callbacks, checkpoint/resume, profiling, ``data_dtype``, the device mesh
 and DIC.
 """

@@ -2,8 +2,8 @@
 
 Counterpart of functionalmf_tpu/models/constrained.py with a cell
 log-likelihood (``loglikelihood_cellfn``): linear constraints
-``A tau >= c`` on every curve, GASS with the grid method, the W update
-over rows, the blocked V update and the exact scale moves
+``A tau >= c`` on every curve, GASS with the grid or the shrink method
+(``gass_method``), the W update over rows, the blocked V update and the exact scale moves
 (``interweave``, ``factor_rebalance``). The V update runs any of the
 JAX package's schedules:
 
@@ -29,11 +29,13 @@ and each V round is one launch of the column-block kernel over all of
 its (chain, column, block) pairs. That is the computation of the JAX
 package's inline einsum (constrained.py:955-970), which is
 ``fused_col_block_ll`` for one pair. ``fuse_cells`` is accepted for
-signature parity and changes nothing.
+signature parity and changes nothing. With ``gass_method="shrink"`` an
+update is one launch for the current points and one an iteration of the
+bracket shrinkage, each with one candidate an item.
 
 Not ported yet (NotImplementedError): a model without a cellfn,
-explicit ``loglikelihood_cells``/``loglikelihood_block``,
-``gass_method="shrink"`` and ``Row_constraints``.
+explicit ``loglikelihood_cells``/``loglikelihood_block`` and
+``Row_constraints``.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ from functionalmf_tpu_torch.ops.fused_ll import (
     fused_row_ll_batched)
 from functionalmf_tpu_torch.ops.mvn import (
     _cho_solve, _solve_lt, cholesky_psd, sample_mvn_from_precision)
-from functionalmf_tpu_torch.samplers.gass import draw_gass_noise, gass
+from functionalmf_tpu_torch.samplers.gass import (
+    draw_gass_noise, draw_gass_shrink_noise, gass, gass_shrink)
 from functionalmf_tpu_torch.samplers.horseshoe import resample_lam2
 from functionalmf_tpu_torch.samplers.slice1d import shrink_slice_1d
 
@@ -58,6 +61,7 @@ __all__ = ["ConstrainedNonconjugateBayesianTensorFiltering",
 
 _LATER = "not ported yet (ROADMAP.md, Queue 1 item 8)"
 _LOG_LAM2_MIN = float(np.log(1e-5))
+_MAX_SHRINK = 30    # the shrink method's iteration bound (gass.py:53)
 
 
 def collapsed_scale_dims(w_len, ncols, ndepth, nembeds):
@@ -137,8 +141,6 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             raise NotImplementedError(f"Row_constraints are {_LATER}")
         if gass_method not in ("grid", "shrink"):
             raise ValueError(f"unknown gass_method {gass_method!r}")
-        if gass_method == "shrink":
-            raise NotImplementedError(f"gass_method='shrink' is {_LATER}")
         if v_schedule not in ("seq", "redblack"):
             raise ValueError(f"unknown v_schedule {v_schedule!r}")
         super().__init__(nrows, ncols, ndepth, **kwargs)
@@ -315,7 +317,6 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         L, mu_all = self._w_proposal(V, state["sigma2"])
         v_all = sample_mvn_from_precision(gen, L, chol_factor=True)
         v_all = v_all.reshape(B, k) * dmask
-        log_u, gumbel = draw_gass_noise(gen, B, self.gass_ngrid, self.device)
 
         def Af(Y):                           # (B, G, k) -> (B, G, m*J)
             G = Y.shape[1]
@@ -332,10 +333,23 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             return fused_row_ll_batched(w, bt, y2, self._row_chain,
                                         self._row_idx, cellfn, extras)
 
-        x_new, _ = gass(state["W"].reshape(B, k), loglik, Af, c, v=v_all,
-                        log_u=log_u, gumbel=gumbel, dim_mask=dmask,
-                        mu=None if mu_all is None else mu_all.reshape(B, k))
+        x_new = self._gass_update(
+            gen, state["W"].reshape(B, k), loglik, Af, c, v=v_all,
+            dim_mask=dmask,
+            mu=None if mu_all is None else mu_all.reshape(B, k))
         return dict(state, W=x_new.reshape(nch, n, k) * self._wmask)
+
+    def _gass_update(self, gen, x, loglik, A, c, **kw):
+        """One batched GASS update of x (B, D) by the model's method; its
+        noise comes from ``gen`` after the proposal draws."""
+        B = x.shape[0]
+        if self.gass_method == "shrink":
+            log_u, phi, u = draw_gass_shrink_noise(gen, B, _MAX_SHRINK,
+                                                   self.device)
+            return gass_shrink(x, loglik, A, c, log_u=log_u, phi=phi, u=u,
+                               **kw)[0]
+        log_u, gumbel = draw_gass_noise(gen, B, self.gass_ngrid, self.device)
+        return gass(x, loglik, A, c, log_u=log_u, gumbel=gumbel, **kw)[0]
 
     def _w_proposal(self, V, sigma2):
         """The W rows' proposal Gaussian (constrained.py:428-450): the
@@ -455,10 +469,9 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             return self._blocks_loglik(W, y, ph,
                                        cands.reshape(B, G, size, k))
 
-        log_u, gumbel = draw_gass_noise(gen, B, self.gass_ngrid, self.device)
         Xb_cur = X[:, :, tidx, :].reshape(B, D)
-        Xb_new, _ = gass(Xb_cur, loglik, A_op, c_all, v=v_b, log_u=log_u,
-                         gumbel=gumbel, mu=mu_b)
+        Xb_new = self._gass_update(gen, Xb_cur, loglik, A_op, c_all, v=v_b,
+                                   mu=mu_b)
         X = X.clone()
         X[:, :, tidx, :] = Xb_new.reshape(nch, m, nblk, size, k)
         return X

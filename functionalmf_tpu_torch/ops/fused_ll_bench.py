@@ -145,14 +145,21 @@ def _outside(case):
 
 
 def path_cases(dev, Y, W0, V0, pol, wide_T=1000, seed=7):
-    """Every shape the paths launch each kernel at, 19x19x228 and k=5 with
-    101 candidates (ngrid=100 + the current point): the W update at
+    """Every shape the paths launch each kernel at, 19x19x228 and k=5:
+    with 101 candidates (the grid method: ngrid=100 + the current point),
+    then with one (the shrink method; ``G=1`` in the shape). The W update at
     nchains 1 and 4 (R=19, 76); the V updates' red-black colour phase
     (nchains 1 and 4: P=266, 1064; Tb=8), sequential round (P=19, Tb=8),
     4-wide tail (P=19, Tb=4) and joint update (P=19, Tb=228), and a joint
     update at T=``wide_T`` on synthetic counts. Without EP the data are
     ``Y``, ``W0``, ``V0`` (the bench.py recipe); with EP ``pol`` = (y, W,
     V, (mu, sig)) (the politics path), candidates within 10% of W or V."""
+    return [case for G in (101, 1)
+            for case in _path_cases(dev, Y, W0, V0, pol, wide_T, seed, G)]
+
+
+def _path_cases(dev, Y, W0, V0, pol, wide_T, seed, G):
+    tag = "" if G == 101 else f", G={G}"
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
@@ -161,7 +168,6 @@ def path_cases(dev, Y, W0, V0, pol, wide_T=1000, seed=7):
                                     device=dev)
     n, m, T = Y.shape
     k = W0.shape[1]
-    G = 101
     C = m * T
 
     def jitter(shape):
@@ -185,7 +191,7 @@ def path_cases(dev, Y, W0, V0, pol, wide_T=1000, seed=7):
                 cw = cw * (torch.arange(k, device=dev)[None] <=
                            torch.arange(n, device=dev)[:, None]
                            ).repeat(nch, 1)[:, None, :]
-            cases.append(Case(name, f"R={R}, C={C}", (
+            cases.append(Case(name, f"R={R}, C={C}{tag}", (
                 cw.contiguous(), bt, y.reshape(n, C).contiguous(), rc, ri),
                 tuple(e.reshape(n, C).contiguous() for e in ex)))
 
@@ -224,7 +230,7 @@ def path_cases(dev, Y, W0, V0, pol, wide_T=1000, seed=7):
             else:
                 c3 = torch.rand((P, G, Tb, k), generator=gen,
                                 device=dev) * 0.4 + 0.8
-            cases.append(Case(name, f"{label}: P={P}, Tb={Tb}",
+            cases.append(Case(name, f"{label}: P={P}, Tb={Tb}{tag}",
                               (c3.contiguous(), w, y, pc, pj, pt), ex))
     return cases
 

@@ -1,6 +1,6 @@
-"""Batched Gaussian draws in precision form.
+"""Batched Gaussian draws in precision and covariance form.
 
-Counterpart of functionalmf_tpu/ops/mvn.py:41-149. ``torch.linalg``'s
+Counterpart of functionalmf_tpu/ops/mvn.py. ``torch.linalg``'s
 Cholesky and triangular solves do the factorisations, as XLA did them
 outside any Pallas kernel in the JAX package.
 
@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["cholesky_psd", "_solve_lt", "_cho_solve",
-           "sample_mvn_from_precision"]
+           "sample_mvn_from_precision", "sample_mvn_from_covariance",
+           "sample_mvn"]
 
 
 def cholesky_psd(Q, eps: float = 1e-6, attempts: int = 4):
@@ -86,3 +87,49 @@ def sample_mvn_from_precision(gen, Q, mu=None, mu_part=None,
     elif mu is not None:
         x = x + mu
     return x
+
+
+def sample_mvn_from_covariance(gen, S, mu=None, mu_part=None,
+                               chol_factor: bool = False,
+                               force_psd: bool = True,
+                               force_psd_eps: float = 1e-6,
+                               force_psd_attempts: int = 4, z=None):
+    """theta ~ N(mu (or S mu_part), S) for a (..., D, D) covariance
+    stack: x = L z (+ the mean term), L L^T = S. ``chol_factor`` means S
+    is already that factor; ``z`` (..., D) injects the standard-normal
+    draw."""
+    if chol_factor:
+        L = S
+        S_full = L @ L.mT
+    else:
+        L = cholesky_psd(S, eps=force_psd_eps,
+                         attempts=force_psd_attempts if force_psd else 0)
+        S_full = S
+    if z is None:
+        z = torch.randn(L.shape[:-1], generator=gen, dtype=L.dtype,
+                        device=L.device)
+    x = torch.einsum("...ij,...j->...i", L, z)
+    if mu_part is not None:
+        x = x + torch.einsum("...ij,...j->...i", S_full, mu_part)
+    elif mu is not None:
+        x = x + mu
+    return x
+
+
+def sample_mvn(gen, Q, mu=None, mu_part=None, precision: bool = False,
+               chol_factor: bool = False, **kwargs):
+    """Dispatch on ``precision``. A scalar or vector Q is promoted to
+    Q * I, its dimension taken from mu or mu_part."""
+    Q = torch.as_tensor(Q)
+    if not chol_factor and Q.dim() <= 1:
+        ref = mu if mu is not None else mu_part
+        if ref is None:
+            raise ValueError(
+                "scalar/vector Q requires mu or mu_part for the dimension")
+        ref = torch.as_tensor(ref)
+        Q = torch.eye(ref.shape[-1], dtype=torch.float32,
+                      device=ref.device) * Q.to(torch.float32).to(ref.device)
+    fn = sample_mvn_from_precision if precision else \
+        sample_mvn_from_covariance
+    return fn(gen, Q, mu=mu, mu_part=mu_part, chol_factor=chol_factor,
+              **kwargs)

@@ -10,7 +10,7 @@ import numpy as np
 
 __all__ = ["first_difference_matrix", "get_delta", "bayes_delta",
            "hypercube_edges", "matrix_from_edges", "bayes_grid_penalty",
-           "num_penalty_rows"]
+           "num_penalty_rows", "penalty_half_bandwidth"]
 
 
 def first_difference_matrix(n: int) -> np.ndarray:
@@ -83,3 +83,10 @@ def num_penalty_rows(ndepth: int, tf_order: int) -> int:
     for k in range(tf_order + 1):
         n += ndepth if k % 2 == 1 else ndepth - 1
     return n
+
+
+def penalty_half_bandwidth(tf_order: int) -> int:
+    """Half-bandwidth of Delta^T diag(w) Delta for the 1-D chain penalty:
+    the widest row of ``bayes_grid_penalty(T, k)`` has support
+    tf_order + 2."""
+    return tf_order + 1

@@ -1,17 +1,23 @@
-"""Generalized Analytic Slice Sampling (GASS), grid method, batched.
+"""Generalized Analytic Slice Sampling (GASS), batched: the grid method
+and the shrink method.
 
-Counterpart of the ``grid`` method of functionalmf_tpu/samplers/gass.py
-(51-190): slice sampling on the ellipse through the current point and a
-Gaussian proposal, restricted to ``A x >= c``. The joint interval of the
-concave constraint arcs (classified at the arc midpoint) carries a fixed
-grid of ``ngrid`` angles; every grid point is checked for feasibility
-directly; one point is picked uniformly among the feasible points above
-the slice by Gumbel-argmax, and the chain stays put when there is none.
+Counterpart of functionalmf_tpu/samplers/gass.py: slice sampling on the
+ellipse through the current point and a Gaussian proposal, restricted to
+``A x >= c``. The joint interval of the concave constraint arcs
+(classified at the arc midpoint) bounds the angle.
 
-Here the update runs over a leading batch axis B at once: (chains x
-rows) for the W update, (chains x columns x blocks) for the V update.
-The current point's log-likelihood is evaluated in the same call as the
-grid's (one extra candidate), so each update is one likelihood launch.
+* ``gass`` (the ``grid`` method, gass.py:51-190): the interval carries a
+  fixed grid of ``ngrid`` angles; every grid point is checked for
+  feasibility directly; one point is picked uniformly among the feasible
+  points above the slice by Gumbel-argmax, and the chain stays put when
+  there is none. The current point's log-likelihood is evaluated in the
+  same call as the grid's (one extra candidate), so an update is one
+  likelihood launch.
+* ``gass_shrink`` (the ``shrink`` method, gass.py:193-237): Neal's bracket
+  shrinkage on the same arc, one candidate an item and iteration.
+
+Both run over a leading batch axis B at once: (chains x rows) for the W
+update, (chains x columns x blocks) for the V update.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import math
 
 import torch
 
-__all__ = ["gass", "draw_gass_noise"]
+__all__ = ["gass", "draw_gass_noise", "gass_shrink",
+           "draw_gass_shrink_noise"]
 
 
 def draw_gass_noise(gen, batch: int, ngrid: int, device,
@@ -34,22 +41,9 @@ def draw_gass_noise(gen, batch: int, ngrid: int, device,
     return log_u, -torch.log(-torch.log(u))
 
 
-def gass(x, loglik, A, c, *, v, log_u, gumbel, mu=None, dim_mask=None,
-         eps: float = 1e-6):
-    """One batched GASS update. Returns (x_new, ll_new).
-
-    Args:
-      x: (B, D) current points, each satisfying A x >= c.
-      loglik: (B, G', D) -> (B, G') batched log-likelihood.
-      A: dense (B, J, D) constraint matrices, or a callable mapping
-        (B, G', D) points to their (B, G', J) constraint values.
-      c: (B, J) constraint offsets.
-      v: (B, D) proposal draws ~ N(0, Sigma).
-      log_u: (B,) log of the slice's uniform; gumbel: (B, ngrid) scores.
-      mu: optional (B, D) ellipse centres.
-      dim_mask: optional (B, D) 0/1; masked dims stay at 0 (the lower-
-        triangular W rows).
-    """
+def _arc(x, A, c, v, mu, dim_mask, eps):
+    """The constraint operator and the feasible arc of each item's
+    ellipse: (Af, x0, v, mu, theta_lo, theta_hi, has_interval)."""
     if callable(A):
         Af = A
     else:
@@ -59,7 +53,6 @@ def gass(x, loglik, A, c, *, v, log_u, gumbel, mu=None, dim_mask=None,
         mu = torch.zeros_like(x)
     if dim_mask is not None:
         v = v * dim_mask
-    ngrid = gumbel.shape[-1]
 
     x0 = x - mu
     a, b, cm = Af(torch.stack([x0, v, mu], dim=1)).unbind(1)   # (B, J) each
@@ -86,6 +79,27 @@ def gass(x, loglik, A, c, *, v, log_u, gumbel, mu=None, dim_mask=None,
     hi = torch.where(interval, tmax, pi).amin(-1) - eps
     theta_lo = torch.where(has_interval, lo, -pi)
     theta_hi = torch.where(has_interval, hi, pi)
+    return Af, x0, v, mu, theta_lo, theta_hi, has_interval
+
+
+def gass(x, loglik, A, c, *, v, log_u, gumbel, mu=None, dim_mask=None,
+         eps: float = 1e-6):
+    """One batched GASS update. Returns (x_new, ll_new).
+
+    Args:
+      x: (B, D) current points, each satisfying A x >= c.
+      loglik: (B, G', D) -> (B, G') batched log-likelihood.
+      A: dense (B, J, D) constraint matrices, or a callable mapping
+        (B, G', D) points to their (B, G', J) constraint values.
+      c: (B, J) constraint offsets.
+      v: (B, D) proposal draws ~ N(0, Sigma).
+      log_u: (B,) log of the slice's uniform; gumbel: (B, ngrid) scores.
+      mu: optional (B, D) ellipse centres.
+      dim_mask: optional (B, D) 0/1; masked dims stay at 0 (the lower-
+        triangular W rows).
+    """
+    ngrid = gumbel.shape[-1]
+    Af, x0, v, mu, theta_lo, theta_hi, _ = _arc(x, A, c, v, mu, dim_mask, eps)
 
     # equal to np.linspace(0, 1, ngrid, dtype=float32), made on the device
     lin = (torch.arange(ngrid, dtype=torch.float64, device=x.device)
@@ -110,3 +124,68 @@ def gass(x, loglik, A, c, *, v, log_u, gumbel, mu=None, dim_mask=None,
     x_new = torch.where(any_ok[:, None], pts[rows, idx], x)
     ll_new = torch.where(any_ok, ll[rows, idx], cur_ll)
     return x_new, ll_new
+
+
+def draw_gass_shrink_noise(gen, batch: int, max_shrink: int, device,
+                           dtype=torch.float32):
+    """(log_u, phi, u): the slice height's log-uniform (B,), the wrap
+    angle phi ~ U(0, 2 pi) (B,) and the bracket uniforms (B, max_shrink)
+    of one batched shrink update, drawn from ``gen`` in this order."""
+    log_u = torch.log(torch.rand(batch, generator=gen, dtype=dtype,
+                                 device=device))
+    phi = torch.rand(batch, generator=gen, dtype=dtype,
+                     device=device) * (2.0 * math.pi)
+    u = torch.rand((batch, max_shrink), generator=gen, dtype=dtype,
+                   device=device)
+    return log_u, phi, u
+
+
+def gass_shrink(x, loglik, A, c, *, v, log_u, phi, u, mu=None,
+                dim_mask=None, eps: float = 1e-6):
+    """One batched GASS update by bracket shrinkage (Neal 2003) on the
+    feasible arc. Returns (x_new, ll_new); arguments as :func:`gass`, with
+    ``phi`` (B,) and ``u`` (B, max_shrink) in place of the Gumbel scores.
+
+    With interval constraints the bracket is the arc, widened to hold
+    theta = 0 (the current point). Without any, the arc is the whole
+    circle, where a fixed [-pi, pi] window is not reversible: the bracket
+    is the randomised wrap [phi - 2 pi, phi]. Each iteration proposes
+    theta = lo + u (hi - lo) for every item that is not done, evaluates
+    one candidate an item (``loglik`` gets (B, 1, D)), accepts a feasible
+    point above the slice, and otherwise shrinks the bracket towards 0.
+    An item that is done ignores every later iteration exactly: its
+    point, log-likelihood and bracket are frozen.
+
+    The loop ends when every item is done or after ``max_shrink``
+    iterations. That is one host sync an iteration (``bool(done.all())``),
+    chosen over a fixed ``max_shrink`` launches of the likelihood: the
+    brackets halve, so the slowest item of a batch is done long before
+    30.
+    """
+    Af, x0, v, mu, theta_lo, theta_hi, has_interval = _arc(
+        x, A, c, v, mu, dim_mask, eps)
+    cur_ll = loglik(x[:, None])[:, 0]
+    h = cur_ll + log_u
+    two_pi = 2.0 * math.pi
+    lo = torch.where(has_interval, theta_lo.clamp(max=0.0), phi - two_pi)
+    hi = torch.where(has_interval, theta_hi.clamp(min=0.0), phi)
+    xc, llc = x, cur_ll
+    done = torch.zeros_like(has_interval)
+    for it in range(u.shape[1]):
+        th = lo + u[:, it] * (hi - lo)
+        xp = (x0 * torch.cos(th)[:, None] + v * torch.sin(th)[:, None] + mu)
+        if dim_mask is not None:
+            xp = xp * dim_mask
+        llp = loglik(xp[:, None])[:, 0]
+        # feasibility is part of the slice: infeasible == ll -inf
+        feas = (Af(xp[:, None])[:, 0] >= c).all(-1)
+        acc = ~done & feas & (llp >= h) & torch.isfinite(llp)
+        rej = ~done & ~acc
+        lo = torch.where(rej & (th < 0), th, lo)
+        hi = torch.where(rej & (th >= 0), th, hi)
+        xc = torch.where(acc[:, None], xp, xc)
+        llc = torch.where(acc, llp, llc)
+        done = done | acc
+        if bool(done.all()):
+            break
+    return xc, llc

@@ -173,6 +173,60 @@ def test_launch_plan_covers_every_cell_and_candidate_once(kind, items,
     assert plan["smem"] <= 232_448
 
 
+@pytest.mark.parametrize("ep", [False, True])
+@pytest.mark.parametrize("kind,items,units,n", PATH_LAUNCHES)
+def test_launch_plan_at_one_candidate_an_item(kind, items, units, n, ep):
+    """gass_method="shrink" launches the kernels with G = 1: one pass of
+    one candidate, the same split of the cells as at G = 101, less shared
+    memory."""
+    plan = F._launch_plan(kind, items, units, 1, 5, n, ep)
+    wide = F._launch_plan(kind, items, units, 101, 5, n, ep)
+    assert plan["passes"] == ((0, 1),)
+    assert _covered_once(plan, units, 1)
+    assert plan["cluster"] == wide["cluster"]
+    assert plan["blocks"] == wide["blocks"]
+    assert plan["chunk"] >= wide["chunk"]
+    assert plan["smem"] == F._smem_bytes(kind, plan["chunk"], 1, 5, n, ep)
+    assert plan["smem"] <= wide["smem"]
+
+
+def test_fused_functions_at_one_candidate_match_jax(rng):
+    """G = 1 through both functions against the Pallas kernels in
+    interpret mode."""
+    k, C, Tb, n = 5, 300, 8, 19
+    cands = rng.gamma(2, 1, size=(1, k)).astype(np.float32)
+    Bm = rng.gamma(1, 0.5, size=(k, C)).astype(np.float32)
+    y = rng.poisson(2.0, size=C).astype(np.float32)
+    y[rng.random(C) < 0.1] = np.nan
+    want = jfl.fused_row_ll(jnp.asarray(cands), jnp.asarray(Bm),
+                            jnp.asarray(y), jax_poisson_cell, interpret=True)
+    _close(F.fused_row_ll(_t(cands), _t(Bm), _t(y), F.POISSON), want)
+    cands3 = rng.gamma(2, 1, size=(1, Tb, k)).astype(np.float32)
+    Wn = rng.gamma(1, 0.5, size=(n, k)).astype(np.float32)
+    y2 = rng.poisson(2.0, size=(Tb, n)).astype(np.float32)
+    want = jfl.fused_col_block_ll(jnp.asarray(cands3), jnp.asarray(Wn),
+                                  jnp.asarray(y2), jax_poisson_cell,
+                                  interpret=True)
+    _close(F.fused_col_block_ll(_t(cands3), _t(Wn), _t(y2), F.POISSON), want)
+
+
+def test_path_cases_hold_every_shape_at_one_candidate():
+    """The timed cases: every path shape at G = 101 and again at G = 1
+    (the shrink method), for all four kernels."""
+    Y, W, V, pol = B.synthetic_problem(n=4, m=3, T=20, k=2)
+    cases = B.path_cases("cpu", Y, W, V, pol, wide_T=40)
+    by_g = {g: [c for c in cases if c.args[0].shape[1] == g]
+            for g in (101, 1)}
+    assert len(by_g[101]) == len(by_g[1]) == len(cases) // 2 == 16
+    assert [c.shape.replace(", G=1", "") for c in by_g[1]] == \
+        [c.shape for c in by_g[101]]
+    assert [c.name for c in by_g[1]] == [c.name for c in by_g[101]]
+    for case in by_g[1]:
+        got, want = case.kernel(), case.plain()
+        assert got.shape == (case.args[0].shape[0], 1)
+        assert torch.equal(got, want)       # CPU tensors: the plain version
+
+
 @pytest.mark.parametrize("kind,units,n", [("row", 4332, 0), ("col", 228, 19),
                                           ("col", 3, 19)])
 def test_launch_plan_runs_passes_for_wide_k_and_many_candidates(kind, units,
@@ -255,6 +309,22 @@ def test_col_kernel_matches_plain_on_card(rng, cuda_device, Tb):
     want = F.col_block_ll_plain(cands, w, y, pc, pj, pt, F.POISSON)
     torch.cuda.synchronize()
     _close(got.cpu(), want.cpu(), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_at_one_candidate_on_card(cuda_device):
+    """Every path shape at G = 1, all four kernels: within rtol=1e-5 /
+    atol=1e-3 of the plain version, bit-identical over two launches."""
+    Y, W, V, pol = B.synthetic_problem()
+    cases = [c for c in B.path_cases(cuda_device, Y, W, V, pol)
+             if c.args[0].shape[1] == 1]
+    assert len(cases) == 16
+    for case in cases:
+        got, again = case.kernel(), case.kernel()
+        want = case.plain()
+        torch.cuda.synchronize()
+        B.compare(got, want)
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

@@ -8,23 +8,53 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "functionalmf_tpu_torch",
     "functionalmf_tpu_torch._runtime",
+    "functionalmf_tpu_torch.apps.flutrends.benchmark",
     "functionalmf_tpu_torch.apps.politics.benchmark",
+    "functionalmf_tpu_torch.examples.binomial_tensor_filtering",
+    "functionalmf_tpu_torch.examples.gaussian_tensor_filtering",
+    "functionalmf_tpu_torch.examples.negbinom_tensor_filtering",
     "functionalmf_tpu_torch.interop",
     "functionalmf_tpu_torch.models.base",
+    "functionalmf_tpu_torch.models.binomial",
     "functionalmf_tpu_torch.models.constrained",
+    "functionalmf_tpu_torch.models.gaussian",
+    "functionalmf_tpu_torch.models.negbinom",
     "functionalmf_tpu_torch.ops._build",
+    "functionalmf_tpu_torch.ops.banded",
     "functionalmf_tpu_torch.ops.fused_ll",
+    "functionalmf_tpu_torch.ops.fused_ll_bench",
+    "functionalmf_tpu_torch.ops.gamma",
     "functionalmf_tpu_torch.ops.mvn",
     "functionalmf_tpu_torch.ops.penalty",
+    "functionalmf_tpu_torch.ops.polyagamma",
     "functionalmf_tpu_torch.samplers.conjugate",
     "functionalmf_tpu_torch.samplers.gass",
     "functionalmf_tpu_torch.samplers.horseshoe",
     "functionalmf_tpu_torch.samplers.slice1d",
     "functionalmf_tpu_torch.utils.diagnostics",
     "functionalmf_tpu_torch.utils.ep",
+    "functionalmf_tpu_torch.utils.metrics",
     "functionalmf_tpu_torch.utils.nmf",
     "functionalmf_tpu_torch.utils.pav",
 ]
+
+
+def test_module_list_covers_the_package():
+    """Every module of the port is in MODULES (the kernel ablation script
+    apart, which builds kernels when it runs)."""
+    root = os.path.join(REPO, "functionalmf_tpu_torch")
+    found = set()
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), REPO)[:-3]
+                name = rel.replace(os.sep, ".")
+                found.add(name[:-9] if name.endswith(".__init__") else name)
+    listed = set(MODULES)
+    missing = {m for m in found - listed
+               if not any(p.startswith(m + ".") for p in listed)}
+    assert missing <= {"functionalmf_tpu_torch.ops.fused_ll_ablate"}, missing
+    assert listed <= found, listed - found
 
 
 def test_port_never_imports_jax():

@@ -127,6 +127,31 @@ def test_app_main_runs_on_cpu(tmp_path, extra):
     assert os.path.exists(tmp_path / "out" / "btf_mu.npy")
 
 
+def test_app_nb_arm_runs_on_cpu(tmp_path):
+    """--nb adds the NegBinom BTF arm (global dispersion, Mu = R P /
+    (1 - P)): its report row carries the same keys, finite, and its
+    results the JAX package's keys, with R > 1."""
+    _write_tensors(str(tmp_path))
+    argv = ["--data-dir", str(tmp_path), "--device", "cpu", "--no-pgds",
+            "--nb", "--nembeds", "2", "--nburn", "30", "--nthin", "1",
+            "--nsamples", "20", "--outdir", str(tmp_path / "out")]
+    out = tbench.run(tbench.parse_args(argv))
+    assert set(out.table) == {"Empirical mean", "BTF", "NB-BTF"}
+    assert set(out.table["NB-BTF"]) == {"rmse_in", "rmse_out", "mae_in",
+                                        "mae_out", "ll_in", "ll_out"}
+    assert all(np.isfinite(v) for v in out.table["NB-BTF"].values())
+    nb = out.nb_results
+    assert set(nb) == {"W", "V", "sigma2", "lam2", "Tau2", "nu2", "R",
+                       "nan_fallbacks", "pivot_repairs"}
+    assert nb["R"].shape == (20, 1, 1, 1) and (nb["R"] > 1).all()
+    assert nb["nu2"].shape == (20, 6, 6, 16)
+    assert (nb["nan_fallbacks"] == 0).all()
+    assert out.nb_model.rdims == (0, 1, 2)
+    import json
+    with open(tmp_path / "out" / "metrics.json") as f:
+        assert "NB-BTF" in json.load(f)
+
+
 def test_app_pgds_mu_warm_start(tmp_path):
     Y = _write_tensors(str(tmp_path))
     np.save(tmp_path / "pgds_mu.npy", np.nan_to_num(Y) + 0.5)
@@ -139,7 +164,6 @@ def test_app_pgds_mu_warm_start(tmp_path):
 
 @pytest.mark.parametrize("argv, match", [
     ([], "PGDS"),
-    (["--no-pgds", "--nb"], "NegBinom"),
 ])
 def test_out_of_slice_arms_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):

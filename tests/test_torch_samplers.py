@@ -1,7 +1,7 @@
-"""One step of the port's GASS (grid method) and shrinkage slice sampler
-against the JAX package's, with the noise JAX itself draws from the same
-key injected (gass.py:98-99 and 183; slice1d.py:43 and 52). The new
-points must agree to atol=1e-5."""
+"""One step of the port's GASS (grid and shrink methods) and shrinkage
+slice sampler against the JAX package's, with the noise JAX itself draws
+from the same key injected (gass.py:98-99, 183, 205-206 and 222;
+slice1d.py:43 and 52). The new points must agree to atol=1e-5."""
 import numpy as np
 import pytest
 
@@ -11,7 +11,8 @@ import torch
 
 from functionalmf_tpu.samplers.gass import gass as jgass
 from functionalmf_tpu.samplers.slice1d import shrink_slice_1d as jslice
-from functionalmf_tpu_torch.samplers.gass import gass, draw_gass_noise
+from functionalmf_tpu_torch.samplers.gass import (
+    draw_gass_noise, draw_gass_shrink_noise, gass, gass_shrink)
 from functionalmf_tpu_torch.samplers.slice1d import shrink_slice_1d
 
 NGRID = 20
@@ -160,6 +161,127 @@ def test_draw_gass_noise_shapes_and_range():
     log_u, gum = draw_gass_noise(g, 7, 11, "cpu")
     assert log_u.shape == (7,) and gum.shape == (7, 11)
     assert (log_u <= 0).all() and torch.isfinite(gum).all()
+
+
+def _shrink_noise(key, max_shrink=30):
+    """log u, the wrap angle and the bracket uniforms as the shrink method
+    draws them from ``key`` (gass.py:98-99, 205-206, 222)."""
+    k_h, _, k_pick = jax.random.split(key, 3)
+    k_wrap, k_loop = jax.random.split(k_pick)
+    log_u = float(jnp.log(jax.random.uniform(k_h)))
+    phi = float(jax.random.uniform(k_wrap) * (2.0 * jnp.pi))
+    u = [float(jax.random.uniform(jax.random.fold_in(k_loop, it)))
+         for it in range(max_shrink)]
+    return log_u, phi, np.asarray(u, np.float32)
+
+
+def _run_both_shrink(xs, mus, vs, jax_ll, torch_ll, jax_A, torch_A, cs, keys,
+                     dim_masks=None):
+    want, want_ll, noise = [], [], []
+    for b, key in enumerate(keys):
+        kw = {} if dim_masks is None else dict(
+            dim_mask=jnp.asarray(dim_masks[b]))
+        x_new, ll_new = jgass(key, jnp.asarray(xs[b]), None, jax_ll, jax_A(b),
+                              jnp.asarray(cs[b]), mu=jnp.asarray(mus[b]),
+                              v=jnp.asarray(vs[b]), method="shrink", **kw)
+        want.append(np.asarray(x_new))
+        want_ll.append(float(ll_new))
+        noise.append(_shrink_noise(key))
+    calls = []
+
+    def counted_ll(c):
+        calls.append(tuple(c.shape))
+        return torch_ll(c)
+
+    got, got_ll = gass_shrink(
+        _t(xs), counted_ll, torch_A, _t(cs), v=_t(vs),
+        log_u=_t([n[0] for n in noise]), phi=_t([n[1] for n in noise]),
+        u=_t(np.stack([n[2] for n in noise])), mu=_t(mus),
+        dim_mask=None if dim_masks is None else _t(dim_masks))
+    np.testing.assert_allclose(got_ll.numpy(), want_ll, rtol=1e-4, atol=1e-4)
+    return got.numpy(), np.stack(want), calls
+
+
+def test_gass_shrink_with_interval_constraints_matches_jax(rng):
+    """Positivity constraints in 3-D, batch of 8, a likelihood much
+    narrower than the proposal: several shrink iterations, items done at
+    different iterations (a done item must ignore the later ones), one
+    candidate an item a call."""
+    B, D = 8, 3
+    xs = np.abs(rng.normal(1, 0.3, (B, D))).astype(np.float32)
+    mus = np.abs(rng.normal(0.5, 0.2, (B, D))).astype(np.float32)
+    vs = rng.normal(0, 0.8, (B, D)).astype(np.float32)
+    A = np.broadcast_to(np.eye(D, dtype=np.float32), (B, D, D)).copy()
+    cs = np.zeros((B, D), np.float32)
+    jll, tll = _gauss_ll_pair(np.full(D, 1.2, np.float32), 0.1)
+    got, want, calls = _run_both_shrink(
+        xs, mus, vs, jll, tll, lambda b: jnp.asarray(A[b]), _t(A), cs,
+        _keys(B, 5))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert (got >= 0).all()
+    assert (np.abs(got - xs).max(axis=1) > 0).all()     # shrink always moves
+    assert set(calls) == {(B, 1, D)} and 3 < len(calls) < 31
+
+
+def test_gass_shrink_full_circle_uses_the_randomised_wrap(rng):
+    """No constraint is an interval constraint (c far below): the bracket
+    is [phi - 2 pi, phi]."""
+    B, D = 6, 2
+    xs = rng.normal(0, 1, (B, D)).astype(np.float32)
+    mus = np.zeros((B, D), np.float32)
+    vs = rng.normal(0, 1.0, (B, D)).astype(np.float32)
+    A = np.broadcast_to(np.eye(D, dtype=np.float32), (B, D, D)).copy()
+    cs = np.full((B, D), -100.0, np.float32)
+    jll, tll = _gauss_ll_pair(np.full(D, 0.3, np.float32), 0.2)
+    got, want, _ = _run_both_shrink(
+        xs, mus, vs, jll, tll, lambda b: jnp.asarray(A[b]), _t(A), cs,
+        _keys(B, 6))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_gass_shrink_callable_operator_and_dim_mask_match_jax(rng):
+    B, D, J = 5, 3, 4
+    masks = np.tril(np.ones((B, D), np.float32))[:, :D]
+    masks[3:] = 1.0
+    xs = (np.abs(rng.normal(1, 0.3, (B, D))) * masks).astype(np.float32)
+    mus = np.zeros((B, D), np.float32)
+    vs = rng.normal(0, 1.0, (B, D)).astype(np.float32)
+    A = np.abs(rng.normal(1, 0.3, (B, J, D))).astype(np.float32)
+    cs = np.zeros((B, J), np.float32)
+    jll, tll = _gauss_ll_pair(np.full(D, 0.8, np.float32), 0.3)
+    got, want, _ = _run_both_shrink(
+        xs, mus, vs, jll, tll,
+        lambda b: (lambda y, b=b: jnp.dot(jnp.asarray(A[b] * masks[b][None]),
+                                          y)),
+        lambda Y: torch.einsum("bjd,bgd->bgj", _t(A), Y * _t(masks)[:, None]),
+        cs, _keys(B, 7), dim_masks=masks)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert (got[masks == 0] == 0).all()
+
+
+def test_gass_shrink_hits_the_iteration_bound_and_stays_put(rng):
+    """A likelihood that rejects everything but the current point: after
+    max_shrink iterations both versions return x."""
+    B, D = 3, 2
+    xs = np.abs(rng.normal(1, 0.3, (B, D))).astype(np.float32)
+    A = np.broadcast_to(np.eye(D, dtype=np.float32), (B, D, D)).copy()
+    cs = np.zeros((B, D), np.float32)
+    vs = rng.normal(0, 1.0, (B, D)).astype(np.float32)
+    log_u, phi, u = draw_gass_shrink_noise(torch.Generator().manual_seed(0),
+                                           B, 5, "cpu")
+    assert log_u.shape == phi.shape == (B,) and u.shape == (B, 5)
+    assert (phi >= 0).all() and (phi <= 2 * np.pi).all()
+    calls = []
+
+    def ll(c):
+        calls.append(1)
+        return torch.where(((c - _t(xs)[:, None]) ** 2).sum(-1) == 0, 0.0,
+                           -torch.inf)
+
+    got, _ = gass_shrink(_t(xs), ll, _t(A), _t(cs), v=_t(vs), log_u=log_u,
+                         phi=phi, u=u)
+    np.testing.assert_array_equal(got.numpy(), xs)
+    assert len(calls) == 1 + 5
 
 
 def _slice_noise(key, max_shrink):
