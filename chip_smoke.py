@@ -1,8 +1,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU through its paths and check
 them: the red-black constrained-Poisson recipe (grid and shrink GASS), the
-GDELT politics benchmark with EP centring and its NegBinom arm, and the
+GDELT politics benchmark with EP centring and its NegBinom arm, the
 conjugate and Polya-Gamma families (the flu-trends app, Gaussian and
-Binomial models at the GDELT width).
+Binomial models at the GDELT width), and the black-box-likelihood paths
+(the dose-response app with its U hook in both flavours, Row_constraints
+and a device hook on the Poisson recipe, checkpoint/resume, ESS).
 
     python3 chip_smoke.py
 
@@ -38,16 +40,40 @@ Phases (any failure raises and exits non-zero before the last line):
      package's keys and shapes, nan_fallbacks == 0;
   8. agreement: models run on the card (kernels) and on the CPU (plain
      versions) must reach the same posterior mean of Mu (rel < 0.12; 400
-     draws from 4 chains of 200 + 100 sweeps):
+     draws from 4 chains of 120 + 100 sweeps):
      small models of the red-black recipe (grid and shrink), of the seq
      schedule with EP and of the Gaussian, Binomial and NegBinom families,
      and the politics tensor at full width (seq, EP at a sigma the model
      does not call overconfident), started at half the warm start's rates;
-  9. where the time goes: ms a sweep of every phase of the new paths
+  9. black-box likelihoods (no cell function: the fused kernels' counters
+     must stay 0 on these paths, plain PyTorch lifted by torch.func.vmap):
+     the dose-response app through its entry point on its own simulation
+     at full width (simulate(k=5, n=100, m=50, t=9, r=6, p=20, seed=42),
+     written and read back as CSV; --nembeds 5 --tf_order 2 --features
+     --sample_features, the device-side U hook, 20 + 20 sweeps): every
+     draw finite, every curve constraint ([0, 1], softened monotone) and
+     every row constraint (W U^T in [0, 1]) holds at every collected draw,
+     U (nsamples, p, k) moved from its start, W and V moved from the NMF
+     start; at that model's state, the lifted candidate log-likelihoods of
+     the W update and of both V rounds (EP term included) against a Python
+     loop of the app's one-item likelihood, for 3 rows and 3 columns of
+     101 candidates each; the same model with the host hook for 5 + 5
+     sweeps, from the same host fits; the app on its default simulation
+     (8x11x9, r=6, no features, 4 chains of 10 + 15 sweeps, --nbins 10) on
+     the card and on the CPU: posterior means of Mu within rel < 0.12;
+     Row_constraints with a device hook that rewrites
+     them every sweep on the red-black Poisson recipe at 19x19x228 (both
+     non-EP kernels must launch; every draw satisfies the curve
+     constraints and the row constraints its sweep ran under);
+     checkpoint/resume of that recipe on the card (a run cut in two
+     equals the whole run exactly); NonconjugateBayesianTensorFiltering
+     (ESS) with a Poisson log-link likelihood at 19x19x228 (finite draws)
+     and at a toy shape on the card and on the CPU (rel < 0.12);
+ 10. where the time goes: ms a sweep of every phase of the new paths
      (nu2 or Polya-Gamma draw, R moves, priors, W update, V update split
      into band assembly, equilibrate + retile, factor scan, solve scans),
      each with a synchronise around it;
- 10. kernels: each of the four kernels (row and column-block, each with and
+ 11. kernels: each of the four kernels (row and column-block, each with and
      without EP) against its plain PyTorch version on the card, at every
      shape the paths launch it at (functionalmf_tpu_torch/ops/
      fused_ll_bench.py: 19x19x228, k=5, 101 candidates and again with one,
@@ -61,7 +87,8 @@ Phases (any failure raises and exits non-zero before the last line):
      launches on the same inputs must agree bit for bit; each kernel's
      device time (torch.profiler), the wrapper's host time, its bound on
      an H100 and its share of it; then the launches, device time and host
-     waits a sweep of the new paths (torch.profiler). Last, because
+     waits a sweep of the new paths but the row-constraints recipe and
+     ESS (torch.profiler). Last, because
      torch.profiler slows every later launch of the process on the host.
 After each group of phases a line gives the seconds elapsed so far. The
 line before the last is the kernels' JSON record, the last line
@@ -82,8 +109,8 @@ NGRID = 100
 BLOCK = 8
 WARM_SWEEPS = 20
 # the small card-vs-CPU agreement runs: 400 draws from 4 chains of
-# 200 + 100 sweeps (a sweep costs the host the same at 1 chain and at 4)
-AGREE = dict(nchains=4, nburn=200, nsamples=100)
+# 120 + 100 sweeps (a sweep costs the host the same at 1 chain and at 4)
+AGREE = dict(nchains=4, nburn=120, nsamples=100)
 RECIPE_SWEEPS = 100       # the red-black recipe's timed run at nchains=1
 REPLACES = {"fused_row_ll": "functionalmf_tpu/ops/fused_ll.py:80",
             "fused_col_block_ll": "functionalmf_tpu/ops/fused_ll.py:138"}
@@ -660,6 +687,453 @@ def family_agreement(dev, family):
         fail(f"{family}: card and CPU posteriors disagree (rel={rel:.4f})")
 
 
+# ----------------------------------------------------------------------
+# black-box likelihoods: the dose-response app, Row_constraints and hooks,
+# checkpoint/resume, ESS
+# ----------------------------------------------------------------------
+DOSE_SIM = dict(k=5, n=100, m=50, t=9, r=6, p=20, seed=42)
+DOSE_SWEEPS = (20, 20)          # burn-in, draws: the device-side hook
+DOSE_HOST_SWEEPS = (5, 5)       # the host hook
+DOSE_AGREE = dict(nchains=4, nburn=10, nsamples=15)
+# rows and columns whose lifted candidate log-likelihoods are held against
+# a Python loop of the user's one-item function, and the tolerance for
+# every candidate: |lifted - loop| <= LIFT_RTOL * (|ll| + |ep|) + LIFT_ATOL
+# * cells, ll the user's value, ep the EP log-density that is taken from it
+# and cells the (row, column, time) cells the item covers. Both are float32
+# sums in another order; inside a cell the Gamma terms (lgamma(shape),
+# shape log(scale): hundreds each) cancel, which is what LIFT_ATOL allows
+LIFT_ROWS, LIFT_COLS = (0, 41, 97), (0, 23, 49)
+LIFT_RTOL, LIFT_ATOL = 1e-5, 2e-4
+
+
+def check_no_launches(tag, launches):
+    if any(launches.values()):
+        fail(f"{tag}: a fused kernel launched ({launches}) on a path "
+             "without a cell function")
+    print(f"launches {tag}: {json.dumps(launches)}: 0 as expected, this "
+          "path has no cell function (plain PyTorch lifted by "
+          "torch.func.vmap, as the JAX path is plain XLA)")
+
+
+def check_dose_draws(tag, Ws, Vs, Us, U0, warm_start, tol=1e-4):
+    """Every collected draw: finite, Mu in [0, 1], softened monotone
+    (Mu[t] - Mu[t+1] >= -1e-2), W U^T in [0, 1]; U, W and V moved."""
+    for name, x in (("W", Ws), ("V", Vs), ("U", Us)):
+        if not np.isfinite(x).all():
+            fail(f"{tag}: non-finite draws in {name}")
+    mu = np.einsum("snk,smtk->snmt", Ws, Vs)
+    if mu.min() < -tol or mu.max() > 1 + tol:
+        fail(f"{tag}: a draw leaves [0, 1] (Mu in [{mu.min():.6f}, "
+             f"{mu.max():.6f}])")
+    step = (mu[..., :-1] - mu[..., 1:]).min()
+    if step < -1e-2 - tol:
+        fail(f"{tag}: a draw violates the softened monotonicity "
+             f"(min Mu[t] - Mu[t+1] = {step:.6f}, limit -0.01)")
+    wu = np.einsum("snk,spk->snp", Ws, Us)
+    if wu.min() < -tol or wu.max() > 1 + tol:
+        fail(f"{tag}: a draw violates the row constraints (W U^T in "
+             f"[{wu.min():.6f}, {wu.max():.6f}])")
+    S = Ws.shape[0]
+    if Us.shape != (S,) + U0.shape:
+        fail(f"{tag}: U draws have shape {Us.shape}, expected "
+             f"{(S,) + U0.shape}")
+    moved = {}
+    for name, x, x0 in (("U", Us, U0), ("W", Ws, warm_start[0]),
+                        ("V", Vs, warm_start[1])):
+        d = np.abs(x - x0.astype(np.float32)).reshape(S, -1).max(axis=1)
+        if not (d > 0).all():
+            fail(f"{tag}: a collected {name} draw equals its start")
+        moved[name] = float(np.abs(x - x0).mean() / np.abs(x0).mean())
+    print(f"doseresponse {tag}: {S} draws finite and feasible: Mu in "
+          f"[{mu.min():.5f}, {mu.max():.5f}], min step {step:.5f}, W U^T in "
+          f"[{wu.min():.5f}, {wu.max():.5f}]; mean |draw - start| / mean "
+          f"|start|: " + ", ".join(f"{a} {b:.4f}" for a, b in moved.items()))
+
+
+def lifted_loglik_gate(model, data, dev):
+    """The black-box contract at the app's full width on the card: the
+    candidate log-likelihoods that the W update and each V round get from
+    the lifted (torch.func.vmap) call, EP term included, against a Python
+    loop of the user's one-item function over the same candidates, for a
+    few rows and columns. A lifted call that drops the EP term, indexes
+    another row or rebuilds the curve around the wrong block fails here."""
+    from functionalmf_tpu_torch.ops.fused_ll import ep_log_density
+    n, m, k, G = model.nrows, model.ncols, model.nembeds, model.gass_ngrid + 1
+    pdata = model.prepare_data(data)
+    user_ll, (mu, sig) = model.loglikelihood, model._ep
+    gen = torch.Generator(device=dev).manual_seed(0)
+    W = (model._state["W"] * model._wmask).contiguous()       # (1, n, k)
+    V = model._state["V"]                                     # (1, m, T, k)
+    dmask = model._wmask.expand(1, n, k).reshape(n, k)
+    worst = {}
+
+    def jitter(x):          # G candidates around each item's current value
+        z = torch.randn((x.shape[0], G) + x.shape[1:], generator=gen,
+                        device=dev)
+        return x[:, None] * (1 + 0.05 * z)
+
+    def one(ll, ep):
+        return float(ll), float(ep.sum())
+
+    def hold(tag, got, parts, cells):
+        got, (ll, ep) = got.cpu().numpy(), np.array(parts).T
+        want = ll - ep
+        if not np.isfinite(got).all() or np.ptp(want) == 0:
+            fail(f"lifted {tag}: non-finite or constant log-likelihoods")
+        tol = LIFT_RTOL * (np.abs(ll) + np.abs(ep)) + LIFT_ATOL * cells
+        err = np.abs(got - want)
+        worst[tag] = dict(max_abs_err=float(err.max()),
+                          of_tolerance=float((err / tol).max()),
+                          mean_abs_ep=float(np.abs(ep).mean()))
+        if not (err <= tol).all():
+            fail(f"lifted {tag}: |lifted - loop| reaches {err.max():.3e}, "
+                 f"{(err / tol).max():.2f} of its tolerance; loop values in "
+                 f"[{want.min():.4g}, {want.max():.4g}]")
+
+    cands = jitter(W[0]) * dmask[:, None]                     # (n, G, k)
+    got = model._w_loglik_blackbox(pdata, V, dmask)(cands)
+    want = []
+    for i in LIFT_ROWS:
+        for w_g in cands[i]:
+            tau = torch.einsum("k,mtk->mt", w_g, V[0])
+            want.append(one(
+                user_ll(pdata, tau, w_g, V[0], row=torch.tensor(i, device=dev)),
+                ep_log_density(tau, mu[i], sig[i])))
+    hold("W update", got[list(LIFT_ROWS)].reshape(-1), want, m * model.ndepth)
+
+    for ph in model._phases:
+        s0, e0 = ph.starts[0], ph.starts[0] + ph.size
+        cands = jitter(V[0][:, s0:e0])                        # (m, G, size, k)
+        got = model._v_loglik_blackbox(pdata, W, V, ph)(
+            cands.reshape(m, G, -1))
+        want = []
+        for j in LIFT_COLS:
+            for Vb_g in cands[j]:
+                V_g = torch.cat([V[0, j, :s0], Vb_g, V[0, j, e0:]])
+                tau = torch.einsum("tk,nk->nt", V_g, W[0])
+                want.append(one(
+                    user_ll(pdata, tau, W[0], V_g,
+                            col=torch.tensor(j, device=dev)),
+                    ep_log_density(tau, mu[:, j], sig[:, j])))
+        hold(f"V round t={s0}:{e0}", got[list(LIFT_COLS)].reshape(-1), want,
+             n * model.ndepth)
+    print(f"lifted log-likelihoods vs a loop of the user's function "
+          f"({len(LIFT_ROWS)} rows, {len(LIFT_COLS)} columns, {G} candidates "
+          f"each; tolerance {LIFT_RTOL} (|ll| + |ep|) + {LIFT_ATOL} cells): "
+          + json.dumps({k_: {a: float(f"{b:.3e}") for a, b in v.items()}
+                        for k_, v in worst.items()}))
+
+
+def doseresponse_phase(dev):
+    """The dose-response app through its entry point at full width, the
+    device-side U hook; then the host hook on a model the app builds."""
+    from functionalmf_tpu_torch.apps.doseresponse import fit, sim
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    nburn, nsamples = DOSE_SWEEPS
+    with tempfile.TemporaryDirectory() as d:
+        sim.write_csv(sim.simulate(**DOSE_SIM), d)
+        argv = ["--data", f"{d}/data.csv", "--features", f"{d}/features.csv",
+                "--sample_features", "--outdir", f"{d}/out", "--nembeds", "5",
+                "--tf_order", "2", "--device", "cuda", "--nthin", "1"]
+        args = fit.parse_args(argv + ["--nburn", str(nburn), "--nsamples",
+                                      str(nsamples)])
+        F.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = fit.run(args)
+        launches = dict(F.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        saved = {name: np.load(f"{d}/out/{name}.npy")
+                 for name in ("btf", "btf_w", "btf_v", "btf_u", "btf_mono")}
+    model, res, Y, X = out["model"], out["results"], out["Y"], out["X"]
+    n, m, T, r = Y.shape
+    p, k = out["U0"].shape
+    if (n, m, T, r, p, k) != (98, 50, 9, 6, 20, 5):
+        fail(f"doseresponse: shapes {(n, m, T, r, p, k)}")
+    if model.device.type != "cuda" or model.loglikelihood_cellfn is not None:
+        fail("doseresponse: the model is not the black-box model on the card")
+    check_no_launches("doseresponse", launches)
+    if saved["btf_u"].shape != (nsamples, p, k) or \
+            saved["btf"].shape != (nsamples, n, m, T):
+        fail(f"doseresponse: saved shapes {saved['btf_u'].shape}, "
+             f"{saved['btf'].shape}")
+    check_dose_draws("device hook", res["W"], res["V"], out["U_samples"],
+                     out["U0"], out["warm_start"])
+    if not model.check_constraints():
+        fail("doseresponse: the final state violates its constraints")
+    lifted_loglik_gate(model, dict(out["data"],
+                                   U=model.Row_constraints[:p, :k]), dev)
+    rep = out["report"]["mae_in"]
+    print(f"doseresponse device hook: {n}x{m}x{T}x{r}, p={p}, k={k}; "
+          f"sweeps={out['nsweeps']} seconds={out['gibbs_seconds']:.3f} "
+          f"sweeps_per_sec={out['nsweeps'] / out['gibbs_seconds']:.3f} "
+          f"(cold); peak device memory {peak:.3f} GiB; set-up (3 NMF fits, "
+          f"EP) {out['nmf_seconds']:.1f}s; "
+          f"in-sample MAE posterior mean {rep['Posterior mean']:.5f}, "
+          f"monotone NMF {rep['Monotone NMF']:.5f}, NMF {rep['NMF']:.5f}")
+
+    # the rate of each hook flavour from warmed sweeps of the same model.
+    # The device hook keeps U in the prepared data, which a run does not
+    # give back: a later run continues from the U in the state's
+    # Row_constraints, [U | 0; -U | -1], which the current W is feasible for
+    def data():
+        return dict(out["data"], U=model.Row_constraints[:p, :k])
+
+    hook = fit.make_traced_u_step(X, dev)
+    t0 = time.perf_counter()
+    run_sweeps(model, data, WARM_SWEEPS, traced_callback=hook)
+    dt_dev = time.perf_counter() - t0
+    # the host hook, on a model of its own built by the app from the same
+    # host fits (NMF warm start, EP)
+    hb, hs = DOSE_HOST_SWEEPS
+    hargs = fit.parse_args(argv + ["--host-callback", "--nburn", str(hb),
+                                   "--nsamples", str(hs)])
+    hmodel, U0 = fit.init_model(Y, out["likelihood"], hargs, X=X,
+                                warm=out["fits"]["warm"])
+    start = (hmodel.W.copy(), hmodel.V.copy())
+    hdata = {"Y": Y, "X": X, "U": U0}
+    F.reset_launch_counts()
+    hres = hmodel.run_gibbs(hdata, nburn=hb, nthin=1, nsamples=hs,
+                            verbose=False, collect_data_keys=("U",),
+                            callback=fit.make_u_step(hargs, X, dev))
+    check_no_launches("doseresponse host hook", dict(F.launch_counts))
+    check_dose_draws("host hook", hres["W"], hres["V"], hres["U"], U0, start)
+    if not hmodel.check_constraints():
+        fail("doseresponse host hook: the final state violates its "
+             "constraints")
+    t0 = time.perf_counter()
+    run_sweeps(hmodel, hdata, WARM_SWEEPS,
+               callback=fit.make_u_step(hargs, X, dev))
+    dt_host = time.perf_counter() - t0
+    print(f"doseresponse warmed, {WARM_SWEEPS} sweeps each: device hook "
+          f"sweeps_per_sec={WARM_SWEEPS / dt_dev:.3f}, host hook "
+          f"sweeps_per_sec={WARM_SWEEPS / dt_host:.3f}")
+    return model, data, hook
+
+
+def doseresponse_agreement(dev):
+    """The app on its default simulation (no features), on the card and on
+    the CPU (from the card run's host fits: the NMF baselines, the warm
+    start and EP do not depend on the device): the posterior means of Mu
+    within rel < 0.12 of its RMS."""
+    from functionalmf_tpu_torch.apps.doseresponse import fit, sim
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    means, maes, fits = {}, {}, None
+    with tempfile.TemporaryDirectory() as d:
+        sim.write_csv(sim.simulate(), d)
+        for device in ("cuda", "cpu"):
+            args = fit.parse_args(
+                ["--data", f"{d}/data.csv", "--outdir", f"{d}/{device}",
+                 "--nembeds", "3", "--nbins", "10", "--device", device,
+                 "--nchains", str(DOSE_AGREE["nchains"]), "--nburn",
+                 str(DOSE_AGREE["nburn"]), "--nsamples",
+                 str(DOSE_AGREE["nsamples"])])
+            F.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fit.run(args, fits=fits)
+            fits = out["fits"]
+            dt = time.perf_counter() - t0
+            if any(F.launch_counts.values()):
+                fail("doseresponse agreement: a fused kernel launched")
+            mu = np.einsum("znk,zmtk->znmt", out["results"]["W"],
+                           out["results"]["V"])
+            if not np.isfinite(mu).all() or mu.min() < -1e-4 \
+                    or mu.max() > 1 + 1e-4:
+                fail(f"doseresponse agreement on {device}: non-finite or "
+                     "infeasible draws")
+            means[device] = mu.mean(0)
+            maes[device] = out["report"]["mae_in"]
+            print(f"doseresponse agreement on {device}: "
+                  f"{out['Y'].shape} in {dt:.1f}s")
+    scale = np.sqrt((means["cpu"] ** 2).mean())
+    rel = float(np.abs(means["cuda"] - means["cpu"]).mean() / scale)
+    print(f"agreement card vs cpu (doseresponse 8x11x9, r=6, "
+          f"{DOSE_AGREE['nchains']} chains): rel={rel:.4f} (limit 0.12); "
+          f"in-sample MAE posterior mean card "
+          f"{maes['cuda']['Posterior mean']:.5f} cpu "
+          f"{maes['cpu']['Posterior mean']:.5f}, monotone NMF "
+          f"{maes['cuda']['Monotone NMF']:.5f}")
+    if not rel < 0.12:
+        fail(f"doseresponse: card and CPU posteriors disagree (rel={rel:.4f})")
+
+
+def rc_hook(state, pdata, gen, step):
+    """A device-side hook that rewrites Row_constraints every sweep:
+    w_a >= c for every embedding a and w_0 - w_1 >= c2, the offsets drawn
+    just below what the chain's current W attains, so that the new rows
+    hold for it and bind in the next sweep."""
+    W = state["W"]
+    nch, _, k = W.shape
+    u = torch.rand((nch, 2), generator=gen, device=W.device)
+    c = W.amin((1, 2)).clamp(max=0.0) - 0.01 - 0.1 * u[:, 0]
+    c2 = (W[:, :, 0] - W[:, :, 1]).amin(1) - 0.01 - 0.1 * u[:, 1]
+    RC = state["Row_constraints"].clone()
+    RC[:, :k, k] = c[:, None]
+    RC[:, k, k] = c2
+    return dict(state, Row_constraints=RC), pdata
+
+
+def rc_recipe_model(dev, Con, W0, V0):
+    from functionalmf_tpu_torch import (
+        ConstrainedNonconjugateBayesianTensorFiltering as Model)
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    k = NEMBEDS
+    mixed = np.zeros((1, k + 1))
+    mixed[0, :2] = 1.0, -1.0
+    RC = np.concatenate([np.concatenate([np.eye(k), np.zeros((k, 1))], 1),
+                         mixed])
+    RC[:, k] = -0.05
+    RC[k, k] = float((W0[:, 0] - W0[:, 1]).min()) - 0.05
+    model = Model(
+        NROWS, NCOLS, NDEPTH, poisson_loglik, Con, device=dev,
+        nembeds=k, tf_order=2, sigma2_init=0.5, lam2_init=0.1,
+        W_init=W0, V_init=V0, gass_ngrid=NGRID, seed=0,
+        v_schedule="redblack", v_block_size=BLOCK, Row_constraints=RC,
+        loglikelihood_cellfn=F.POISSON)
+    return model
+
+
+def rc_recipe_phase(dev, Y, Con, W0, V0, nburn=10, nsamples=20):
+    """Row_constraints, rewritten every sweep by a device-side hook, on
+    the red-black Poisson recipe: the W update's candidates go through
+    the row kernel, the V rounds' through the column kernel."""
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    model = rc_recipe_model(dev, Con, W0, V0)
+    run_sweeps(model, Y, 2, traced_callback=rc_hook)
+    F.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.run_gibbs(Y, nburn=nburn, nthin=1, nsamples=nsamples,
+                          verbose=False, traced_callback=rc_hook,
+                          collect_data_keys=("Row_constraints",))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(F.launch_counts)
+    check_launches("row constraints", launches,
+                   ("fused_row_ll", "fused_col_block_ll"))
+    RCs = res.pop("Row_constraints")
+    check_results("row constraints", res, model, 1, nsamples)
+    k = NEMBEDS
+    vals = np.einsum("snk,sjk->snj", res["W"], RCs[:, :, :k])
+    own = float((vals - RCs[:, None, :, k]).min())
+    # the sweep of draw s ran under the rows the hook wrote after draw s-1
+    ran = float((vals[1:] - RCs[:-1, None, :, k]).min())
+    if own < -1e-5 or ran < -1e-5:
+        fail(f"row constraints: a draw violates its rows (slack {own:.3e} "
+             f"against the rows written after it, {ran:.3e} against the "
+             "rows its sweep ran under)")
+    if not (np.abs(np.diff(RCs[:, :, k], axis=0)).max(axis=1) > 0).all():
+        fail("row constraints: the hook did not rewrite the rows at a sweep")
+    tight = float((vals[1:] - RCs[:-1, None, :, k]).min(axis=(1, 2)).mean())
+    nsweeps = nburn + nsamples
+    print(f"row constraints + device hook on the recipe: sweeps={nsweeps} "
+          f"seconds={dt:.3f} sweeps_per_sec={nsweeps / dt:.3f}; launches "
+          f"{json.dumps(launches)}; worst slack {ran:.2e} under the rows of "
+          f"its sweep (mean over draws of the tightest row {tight:.4f})")
+    return model
+
+
+def resume_phase(dev, Y, Con, W0, V0, tmpdir):
+    """Checkpoint/resume on the card: a run cut after 2 of 5 draws and
+    resumed equals the whole run, bit for bit (state and hook rewritten
+    Row_constraints included)."""
+    kw = dict(nburn=4, nthin=2, verbose=False, traced_callback=rc_hook,
+              collect_data_keys=("Row_constraints",))
+    whole = rc_recipe_model(dev, Con, W0, V0)
+    whole.max_sweeps_per_call = 3
+    full = whole.run_gibbs(Y, nsamples=5, **kw)
+    ck = f"{tmpdir}/chain.npz"
+    first = rc_recipe_model(dev, Con, W0, V0)
+    first.max_sweeps_per_call = 3
+    first.run_gibbs(Y, nsamples=2, checkpoint_path=ck, **kw)
+    second = rc_recipe_model(dev, Con, W0, V0)
+    second.max_sweeps_per_call = 5
+    resumed = second.run_gibbs(Y, nsamples=5, checkpoint_path=ck, resume=True,
+                               **kw)
+    for key in ("W", "V", "sigma2", "lam2", "Tau2", "Row_constraints"):
+        if not np.array_equal(full[key], resumed[key]):
+            d = np.abs(full[key] - resumed[key]).max()
+            fail(f"resume: {key} of the resumed run differs from the whole "
+                 f"run's (max abs difference {d:.3e})")
+    if np.array_equal(full["V"][0], full["V"][-1]):
+        fail("resume: the chain did not move")
+    print("checkpoint/resume on the card: 14 sweeps cut after 8 and resumed "
+          "equal the whole run exactly (W, V, sigma2, lam2, Tau2, "
+          "Row_constraints)")
+
+
+def ess_loglik(W, V, Y):
+    """Poisson with a log link, for one chain; NaN = missing."""
+    eta = torch.einsum("nk,mtk->nmt", W, V).clamp(-20.0, 20.0)
+    nan = torch.isnan(Y)
+    return torch.where(nan, 0.0, torch.where(nan, 0.0, Y) * eta
+                       - torch.exp(eta)).sum()
+
+
+def ess_phase(dev, nburn=100, nsamples=50):
+    """NonconjugateBayesianTensorFiltering (elliptical slice sampling) at
+    19x19x228 on the card, then card against CPU at a toy shape."""
+    from functionalmf_tpu_torch import NonconjugateBayesianTensorFiltering
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    Mu, rng = synthetic_mu()
+    Y = rng.poisson(np.exp(np.clip(Mu, -3, 3))).astype(float)
+    Y[rng.random((NROWS, NCOLS)) < 0.1] = np.nan
+    model = NonconjugateBayesianTensorFiltering(
+        NROWS, NCOLS, NDEPTH, ess_loglik, device=dev, nembeds=NEMBEDS,
+        tf_order=2, sigma2_init=0.5, lam2_init=0.1, seed=0)
+    F.reset_launch_counts()
+    res, rate = timed_run(model, Y, nburn, nsamples)
+    check_no_launches("ess", dict(F.launch_counts))
+    want = {"W": (nsamples, NROWS, NEMBEDS),
+            "V": (nsamples, NCOLS, NDEPTH, NEMBEDS), "sigma2": (nsamples, 1),
+            "lam2": (nsamples, 1), "Tau2": (nsamples, NCOLS, 3 * NDEPTH - 1),
+            "nan_fallbacks": (1,), "pivot_repairs": (1,)}
+    if set(res) != set(want):
+        fail(f"ess: results keys {sorted(res)} != {sorted(want)}")
+    for key, shape in want.items():
+        if tuple(res[key].shape) != shape or not np.isfinite(res[key]).all():
+            fail(f"ess: results[{key!r}] has shape {res[key].shape} or is "
+                 f"not finite (expected {shape})")
+    if np.array_equal(res["V"][0], res["V"][-1]):
+        fail("ess: the chain did not move")
+    print(f"ess 19x19x228 k=5: sweeps={nburn + nsamples} "
+          f"sweeps_per_sec={rate:.3f} nan_fallbacks "
+          f"{res['nan_fallbacks'].tolist()}")
+
+    # one embedding: with two, chains of this length sit in different
+    # rotations of (W, V) and two CPU runs already differ by rel 0.10
+    n_, m_, T_, k_ = 6, 5, 12, 1
+    rng = np.random.default_rng(11)
+    W = rng.normal(size=(n_, k_))
+    W[np.triu_indices(k_, 1)] = 0
+    V = np.cumsum(rng.normal(0, 0.3, size=(m_, T_, k_)), axis=1)
+    truth = np.einsum("nk,mtk->nmt", W, V)
+    Yt = rng.poisson(np.exp(truth)[..., None], size=truth.shape + (4,))
+    Yt = Yt.sum(-1).astype(float)
+
+    def toy_loglik(W, V, Y):            # 4 replicates summed
+        eta = torch.einsum("nk,mtk->nmt", W, V).clamp(-20.0, 20.0)
+        return (Y * eta - 4.0 * torch.exp(eta)).sum()
+
+    means = {}
+    for d in (dev, "cpu"):
+        mod = NonconjugateBayesianTensorFiltering(
+            n_, m_, T_, toy_loglik, device=d, nembeds=k_, tf_order=1,
+            sigma2_init=0.5, lam2_init=0.1, seed=7, nchains=4)
+        r = mod.run_gibbs(Yt, nburn=500, nthin=2, nsamples=250,
+                          verbose=False)
+        eta = np.einsum("znk,zmtk->znmt", r["W"], r["V"])
+        if not np.isfinite(eta).all():
+            fail(f"ess agreement on {d}: non-finite draws")
+        means[str(d)] = eta.mean(0)
+    scale = np.sqrt((truth ** 2).mean())
+    rel = float(np.abs(means[str(dev)] - means["cpu"]).mean() / scale)
+    fit = float(np.abs(means[str(dev)] - truth).mean() / scale)
+    print(f"agreement card vs cpu (ess toy {n_}x{m_}x{T_}): rel={rel:.4f} "
+          f"(limit 0.12); card vs truth {fit:.4f}")
+    if not rel < 0.12:
+        fail(f"ess: card and CPU posteriors disagree (rel={rel:.4f})")
+    return model, Y
+
+
 # where a sweep's time goes. (attribute of the model, phase label):
 MODEL_PHASES = (
     ("_update_nu2", "nu2 draw"),
@@ -673,6 +1147,8 @@ MODEL_PHASES = (
     ("_v_bands", "V: band assembly"),
     ("_update_W_gass", "W update"),
     ("_update_V_gass", "V update"),
+    ("_update_W_ess", "W update"),
+    ("_update_V_ess", "V update"),
     ("_interweave_scales", "scale moves"),
 )
 # (function of ops/banded.py, phase label)
@@ -715,20 +1191,33 @@ def timed(owner, name, label, totals, instance):
             setattr(owner, name, fn)
 
 
-def run_sweeps(model, data, sweeps):
-    model.run_gibbs(data, nburn=sweeps - 1, nthin=1, nsamples=1,
-                    verbose=False)
+def run_sweeps(model, data, sweeps, **run_kw):
+    """``data`` may be a function of no arguments that gives the data for
+    this run (data a hook rewrites must continue from the model's state)."""
+    model.run_gibbs(data() if callable(data) else data, nburn=sweeps - 1,
+                    nthin=1, nsamples=1, verbose=False, **run_kw)
     torch.cuda.synchronize()
 
 
-def where_time_goes(tag, model, data, expect, sweeps=10, warm=2):
+def where_time_goes(tag, model, data, expect, sweeps=10, warm=2, hook=None):
     """ms a sweep of each phase the model runs and of the sweep as timed.
     The timers make the sweep slower than an untimed one: the figures say
     where the time goes, not how fast the sweep is. Phases nest: the V
     update holds its "V: ..." parts."""
     from functionalmf_tpu_torch.ops import banded
-    run_sweeps(model, data, warm)
     totals = {}
+    run_kw = {}
+    if hook is not None:        # a device-side hook, timed as "hook"
+        def timed_hook(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = hook(*args)
+            torch.cuda.synchronize()
+            totals["hook"] = totals.get("hook", 0.0) + time.perf_counter() - t0
+            return out
+        run_kw = dict(traced_callback=timed_hook)
+    run_sweeps(model, data, warm, **run_kw)
+    totals.clear()
     with contextlib.ExitStack() as stack:
         for name, label in MODEL_PHASES:
             if hasattr(model, name):
@@ -736,7 +1225,7 @@ def where_time_goes(tag, model, data, expect, sweeps=10, warm=2):
         for name, label in BANDED_PHASES:
             stack.enter_context(timed(banded, name, label, totals, False))
         t0 = time.perf_counter()
-        run_sweeps(model, data, sweeps)
+        run_sweeps(model, data, sweeps, **run_kw)
         totals["sweep (timed)"] = time.perf_counter() - t0
     ms = {label: 1e3 * t / sweeps for label, t in totals.items()}
     print(f"phases {tag} (ms a sweep, {sweeps} sweeps, a synchronise around "
@@ -746,18 +1235,19 @@ def where_time_goes(tag, model, data, expect, sweeps=10, warm=2):
     return ms
 
 
-def launch_counts_phase(tag, model, data, sweeps=3, warm=2):
+def launch_counts_phase(tag, model, data, sweeps=3, warm=2, hook=None):
     """A sweep's device kernels, device time, wall time and host-side
     waits from torch.profiler: syncs (stream, device and event
     synchronises), memcpy (cudaMemcpyAsync calls: the bool() and .cpu()
     reads wait in these) and item_reads (aten::_local_scalar_dense)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run_sweeps(model, data, warm)
+    run_kw = {} if hook is None else dict(traced_callback=hook)
+    run_sweeps(model, data, warm, **run_kw)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_sweeps(model, data, sweeps)
+        run_sweeps(model, data, sweeps, **run_kw)
         wall = time.perf_counter() - t0
     kernels = device_us = syncs = memcpy = items = 0
     for ev in prof.key_averages():
@@ -840,32 +1330,52 @@ def main():
     stamp("the families' small agreement runs")
     politics_agreement(dev, pol)
     stamp("the politics agreement")
+    dose_model, dose_data, dose_hook = doseresponse_phase(dev)
+    stamp("the dose-response app")
+    doseresponse_agreement(dev)
+    stamp("the dose-response agreement")
+    rc_model = rc_recipe_phase(dev, Y, Con, W0, V0)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        resume_phase(dev, Y, Con, W0, V0, tmpdir)
+    ess_model, ess_Y = ess_phase(dev)
+    stamp("Row_constraints, resume and ESS")
     # where the time goes on the new paths, with the models of the phases
     # above (warmed); the flu-trends shape through a model of its own
     from functionalmf_tpu_torch import GaussianBayesianTensorFiltering
     flu_model = GaussianBayesianTensorFiltering(
         50, 1, 370, device=dev, nembeds=10, tf_order=2, sigma2_init=1,
         lam2_init=0.1, nu2_init=1, seed=42)
+    gass_sweep = {"W update", "V update", "scale moves"}
     profiled = (
         ("gaussian 19x19x228 k=5", gauss_model, gauss_Y,
-         BANDED_SWEEP | {"nu2 draw"}),
+         BANDED_SWEEP | {"nu2 draw"}, None),
         ("flutrends 50x1x370 k=10", flu_model, flu_Y,
-         BANDED_SWEEP | {"nu2 draw"}),
+         BANDED_SWEEP | {"nu2 draw"}, None),
         ("binomial 19x19x228 k=5", binom_model, binom_data,
-         BANDED_SWEEP | {"PG draw"}),
+         BANDED_SWEEP | {"PG draw"}, None),
         ("negbinom 19x19x228 k=5", nb_model, pol[0],
-         BANDED_SWEEP | {"PG draw", "R moves"}),
+         BANDED_SWEEP | {"PG draw", "R moves"}, None),
         ("shrink recipe 19x19x228 k=5", shrink_model, Y,
-         PRIOR_PHASES | {"W update", "V update", "scale moves"}))
-    for tag, model, data, expect in profiled:
-        where_time_goes(tag, model, data, expect)
+         PRIOR_PHASES | gass_sweep, None),
+        # lam2 is fixed by the dose-response app: no lam2 phase
+        ("doseresponse 98x50x9x6 k=5, device hook", dose_model, dose_data,
+         {"prior: sigma2", "prior: Tau2", "hook"} | gass_sweep, dose_hook),
+        ("row constraints recipe 19x19x228 k=5, device hook", rc_model, Y,
+         PRIOR_PHASES | gass_sweep | {"hook"}, rc_hook),
+        ("ess 19x19x228 k=5", ess_model, ess_Y,
+         PRIOR_PHASES | {"W update", "V update"}, None))
+    for tag, model, data, expect, hook in profiled:
+        where_time_goes(tag, model, data, expect, hook=hook)
     stamp("the phase times")
     # last: torch.profiler, which times the kernels, slows every later
     # launch of the process on the host; the recipe once more shows how much
     records = kernel_phase(dev, Y, W0, V0, pol)
     stamp("the kernel phase")
-    for tag, model, data, _ in profiled:
-        launch_counts_phase(tag, model, data)
+    # not the last two (the row-constraints recipe is the red-black recipe
+    # plus a hook of a few launches; ESS has no launch of its own to count):
+    # a profiler window costs about 9 s whatever it holds
+    for tag, model, data, _, hook in profiled[:-2]:
+        launch_counts_phase(tag, model, data, hook=hook)
     stamp("the launch profiles")
     print("red-black recipe again, after the profiled kernel phase:")
     slice_run(dev, Y, Con, W0, V0, nchains=1, nburn=20, nsamples=20)

@@ -1,19 +1,24 @@
 """functionalmf_tpu_torch: the PyTorch / CUDA port of functionalmf_tpu.
 
-The port runs ``ConstrainedNonconjugateBayesianTensorFiltering`` with a
-cell log-likelihood and linear constraints: GASS (grid or shrink) over W
-rows, the blocked V update under the red-black, sequential or joint
-schedule, optional EP centring, and the exact scale moves. Its GASS
-candidate log-likelihoods run in two hand-written CUDA kernels on the
-card, each with and without EP (``ops/fused_ll.py``,
-``csrc/fused_ll.cu``), and in their plain PyTorch versions on the CPU.
+The port runs ``ConstrainedNonconjugateBayesianTensorFiltering`` with
+linear constraints on the curves and on the rows of W: GASS (grid or
+shrink) over W rows, the blocked V update under the red-black, sequential
+or joint schedule, optional EP centring, and the exact scale moves. With a
+cell log-likelihood its GASS candidate log-likelihoods run in two
+hand-written CUDA kernels on the card, each with and without EP
+(``ops/fused_ll.py``, ``csrc/fused_ll.cu``), and in their plain PyTorch
+versions on the CPU; without one, the user's black-box likelihood is
+lifted over candidates and items with ``torch.func.vmap``
+(``models/constrained.py``). ``NonconjugateBayesianTensorFiltering`` is the
+unconstrained model by elliptical slice sampling.
 It also runs the conjugate and Polya-Gamma families,
 ``GaussianBayesianTensorFiltering``, ``BinomialBayesianTensorFiltering``
 and ``NegativeBinomialBayesianTensorFiltering``, whose V update factors a
 block-banded precision (``ops/banded.py``); these are plain PyTorch on
 the CPU and on the card alike. Apps: the GDELT politics benchmark
-(``apps/politics``) and the flu-trends benchmark (``apps/flutrends``). The package imports torch, numpy and scipy, never
-jax and never ``functionalmf_tpu``.
+(``apps/politics``), the flu-trends benchmark (``apps/flutrends``) and the
+dose-response pipeline (``apps/doseresponse``). The package imports torch,
+numpy and scipy, never jax and never ``functionalmf_tpu``.
 """
 from functionalmf_tpu_torch.models.base import (BayesianTensorFiltering,
                                                 packed_w_len, tril_mask)
@@ -25,6 +30,8 @@ from functionalmf_tpu_torch.models.gaussian import (
     GaussianBayesianTensorFiltering)
 from functionalmf_tpu_torch.models.negbinom import (
     NegativeBinomialBayesianTensorFiltering)
+from functionalmf_tpu_torch.models.nonconjugate import (
+    NonconjugateBayesianTensorFiltering)
 from functionalmf_tpu_torch.ops.mvn import (
     sample_mvn, sample_mvn_from_covariance, sample_mvn_from_precision)
 from functionalmf_tpu_torch.ops.polyagamma import polya_gamma
@@ -35,6 +42,7 @@ __all__ = ["BayesianTensorFiltering",
            "BinomialBayesianTensorFiltering",
            "NegativeBinomialBayesianTensorFiltering",
            "ConstrainedNonconjugateBayesianTensorFiltering",
+           "NonconjugateBayesianTensorFiltering",
            "polya_gamma", "sample_mvn", "sample_mvn_from_precision",
            "sample_mvn_from_covariance",
            "CellFn", "POISSON", "tril_mask", "packed_w_len"]

@@ -9,6 +9,9 @@
   (functionalmf_tpu/models/constrained.py:409-417, samplers/gass.py:106-109,
   ops/banded.py:_mm_f32): constraint geometry and Cholesky pivots at the
   horseshoe's dynamic range need full float32.
+* ``tree_map`` / ``tree_leaves`` walk a data pytree (dicts, tuples and
+  lists of leaves), the structure the black-box likelihoods take their
+  data in (``jax.tree_util`` in the JAX package).
 * ``SweepRNG`` replaces the JAX package's ``_fold`` key derivation
   (functionalmf_tpu/models/base.py:71-74, 622-625, 708-711): one
   ``torch.Generator`` on the model's device, re-seeded at every sweep from
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "require_full_f32", "mix_seed", "SweepRNG"]
+__all__ = ["resolve_device", "require_full_f32", "mix_seed", "SweepRNG",
+           "tree_map", "tree_leaves"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -45,6 +49,24 @@ def require_full_f32():
     assert not torch.backends.cudnn.allow_tf32
 
 
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a pytree of dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    """The leaves of a pytree, dict values in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def _splitmix64(x: int) -> int:
     x = (x + 0x9E3779B97F4A7C15) & _MASK64
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
@@ -66,6 +88,7 @@ class SweepRNG:
 
     INIT = 0xC0FFEE    # state initialisation draws
     SWEEP = 0x515B5    # Gibbs sweeps of run_gibbs
+    HOOK = 0xCB        # run_gibbs's traced_callback, a site of its own
 
     def __init__(self, seed: int, device: torch.device):
         self.seed = int(seed)

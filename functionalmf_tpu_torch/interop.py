@@ -9,14 +9,24 @@ and ``R`` (NegBinom), which cross as every other entry does. Keys and
 shapes are the same in both: every entry has a leading chain axis. Values
 cross unchanged, non-finite ones too: the Binomial ``nu2`` = 1 / omega is
 ``inf`` at cells without data. EP centres are not state: give both models
-the same ``ep_approx``.
+the same ``ep_approx``. The constrained model's ``Row_constraints`` are
+state and cross with it (chain axis included). The prepared data of a
+black-box model, a pytree of arrays that a per-sweep hook may rewrite
+(the dose-response ``{"Y", "X", "U"}``), crosses through
+``data_from_numpy`` / ``data_to_numpy``. ``gamma_grid_likelihood`` builds
+the port's dose-response likelihood from the numpy ``(mean_grid,
+mean_probs, variance)`` the JAX package's is built from, so that both
+evaluate the same mixture.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["state_from_numpy", "state_to_numpy"]
+from functionalmf_tpu_torch._runtime import tree_map
+
+__all__ = ["state_from_numpy", "state_to_numpy", "data_from_numpy",
+           "data_to_numpy", "gamma_grid_likelihood"]
 
 
 def state_from_numpy(np_state, device):
@@ -27,3 +37,22 @@ def state_from_numpy(np_state, device):
 
 def state_to_numpy(state):
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def data_from_numpy(np_data, device):
+    """A pytree of arrays (``jax.device_get`` of the JAX model's prepared
+    data) as float32 tensors on ``device``, structure kept."""
+    return tree_map(lambda v: torch.as_tensor(
+        np.array(v, dtype=np.float32), device=torch.device(device)), np_data)
+
+
+def data_to_numpy(pdata):
+    return tree_map(lambda v: v.detach().float().cpu().numpy(), pdata)
+
+
+def gamma_grid_likelihood(mean_grid, mean_probs, variance, *, device):
+    """The port's ``GammaGridLikelihood`` of the same grid, on ``device``."""
+    from functionalmf_tpu_torch.apps.doseresponse.empirical_bayes import (
+        GammaGridLikelihood)
+    return GammaGridLikelihood(mean_grid, mean_probs, variance,
+                               device=device)

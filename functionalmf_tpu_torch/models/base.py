@@ -15,19 +15,25 @@ verbose)`` and its results dict (scalars as (S, 1), chains concatenated
 chain-major, ``nan_fallbacks``, ``pivot_repairs`` and, with several
 chains, ``rhat``). The families add their own state (``nu2``, ``R``)
 after this constructor, each from its own init generator
-(``_next_init_gen``) taken in a fixed order. Not ported: host callbacks, traced
-callbacks, checkpoint/resume, profiling, ``data_dtype``, the device mesh
-and DIC.
+(``_next_init_gen``) taken in a fixed order. ``run_gibbs`` also takes
+the JAX driver's options: the per-sweep hooks (``callback`` on the host,
+``traced_callback`` on the device, with ``collect_data_keys``),
+``checkpoint_path`` / ``resume``, ``profile_dir`` and ``key``; the
+constructor takes ``data_dtype``; ``select_hyperparams_DIC`` is the DIC
+grid search. Not ported: the device mesh.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 
 import numpy as np
 import torch
 
 from functionalmf_tpu_torch._runtime import (SweepRNG, require_full_f32,
-                                             resolve_device)
+                                             resolve_device, tree_leaves,
+                                             tree_map)
 from functionalmf_tpu_torch.ops.mvn import cholesky_psd
 from functionalmf_tpu_torch.ops.penalty import bayes_grid_penalty
 from functionalmf_tpu_torch.samplers.conjugate import (
@@ -39,6 +45,9 @@ from functionalmf_tpu_torch.samplers.horseshoe import (
 __all__ = ["BayesianTensorFiltering", "tril_mask", "packed_w_len"]
 
 _LATER = "not ported yet (ROADMAP.md, Queue 1)"
+# sweeps at most under the profiler of ``run_gibbs(profile_dir=)``: every
+# launch adds an event to its buffer
+_PROFILE_MAX_SWEEPS = 16
 
 
 def tril_mask(nrows: int, nembeds: int):
@@ -85,8 +94,10 @@ class BayesianTensorFiltering:
                  **kwargs):
         if dtype != torch.float32:
             raise ValueError("the port computes in float32 only")
-        if data_dtype is not None:
-            raise NotImplementedError(f"data_dtype is {_LATER}")
+        if data_dtype not in (None, torch.float32, torch.float16,
+                              torch.bfloat16):
+            raise ValueError("data_dtype must be None or a torch floating "
+                             f"dtype of 16 or 32 bits, got {data_dtype!r}")
         if mesh is not None:
             raise NotImplementedError(f"mesh sharding is {_LATER}")
         self.device = resolve_device(device)
@@ -98,6 +109,10 @@ class BayesianTensorFiltering:
         self.tf_order = int(tf_order)
         self.stability = float(stability)
         self.dtype = torch.float32
+        # storage dtype of the prepared data (torch.float16 halves what the
+        # likelihood passes read; counts up to 2048 stay exact); arithmetic
+        # is float32
+        self.data_dtype = data_dtype
         self.nchains = int(nchains)
         self.linalg_opts = dict(force_psd=force_psd,
                                 force_psd_eps=force_psd_eps,
@@ -360,8 +375,78 @@ class BayesianTensorFiltering:
     # ------------------------------------------------------------------
     # Gibbs driver
     # ------------------------------------------------------------------
+    # ------------------------------------------------------------------
+    # checkpoint / resume
+    # ------------------------------------------------------------------
+    def _save_checkpoint(self, path, state, offset, collected, chunks,
+                         pdata=None):
+        """Write each collected chunk to its own write-once file, then the
+        chain head (state, sweeps done, draws collected) atomically
+        (functionalmf_tpu/models/base.py:424-454). With ``pdata`` (runs
+        with a traced hook, which mutates the prepared data the
+        likelihood reads) its leaves are saved too. No generator state is
+        saved: a sweep's generator is a function of (seed, sweep)."""
+        for ci, chunk in enumerate(chunks):
+            cpath = f"{path}.chunk{ci}.npz"
+            if not os.path.exists(cpath):
+                tmp = cpath + ".tmp.npz"
+                np.savez(tmp, **chunk)
+                os.replace(tmp, cpath)
+        payload = {"__offset": offset, "__collected": collected,
+                   "__nchunks_out": len(chunks)}
+        for key, v in state.items():
+            payload["state__" + key] = v.cpu().numpy()
+        if pdata is not None:
+            leaves = tree_leaves(pdata)
+            payload["__npdata_leaves"] = len(leaves)
+            for i, leaf in enumerate(leaves):
+                # float32 holds every storage dtype exactly (numpy has no
+                # bfloat16); the leaf's own dtype is restored on load
+                payload[f"pdata__{i}"] = leaf.float().cpu().numpy()
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, **payload)
+        os.replace(tmp, path)
+
+    def _load_checkpoint(self, path, pdata_template=None):
+        """(state, offset, collected, chunks, pdata); pdata is None unless
+        the checkpoint holds data leaves and ``pdata_template`` (freshly
+        prepared data, for the structure) is given."""
+        with np.load(path) as z:
+            offset = int(z["__offset"])
+            collected = int(z["__collected"])
+            nchunks = int(z["__nchunks_out"])
+            state = {key[len("state__"):]: torch.as_tensor(
+                z[key], device=self.device)
+                for key in z.files if key.startswith("state__")}
+            pdata = None
+            if pdata_template is not None and "__npdata_leaves" in z.files:
+                n = int(z["__npdata_leaves"])
+                have = len(tree_leaves(pdata_template))
+                if have != n:
+                    raise ValueError(
+                        f"checkpoint pdata has {n} leaves but "
+                        f"prepare_data(data) yields {have}; the data passed "
+                        "to the resumed run must have the same structure")
+                leaves = iter([z[f"pdata__{i}"] for i in range(n)])
+                pdata = tree_map(lambda t: torch.as_tensor(
+                    next(leaves), device=t.device).to(t.dtype),
+                    pdata_template)
+        chunks = []
+        for ci in range(nchunks):
+            with np.load(f"{path}.chunk{ci}.npz") as cz:
+                chunks.append({key: cz[key] for key in cz.files})
+        return state, offset, collected, chunks, pdata
+
+    def mark_data_dirty(self):
+        """Tell ``run_gibbs``, from a host ``callback``, that the ``data``
+        object changed: it is prepared again before the next sweep."""
+        self._data_dirty = True
+
     def run_gibbs(self, data, nburn=1000, nthin=1, nsamples=1000,
-                  verbose=True, print_freq=100, **kwargs):
+                  verbose=True, print_freq=100, callback=None, key=None,
+                  traced_callback=None, collect_data_keys=(),
+                  checkpoint_path=None, resume=False, profile_dir=None,
+                  **kwargs):
         """Blocked Gibbs: ``nburn`` sweeps, then ``nsamples`` draws, one
         after every ``nthin`` sweeps.
 
@@ -372,61 +457,142 @@ class BayesianTensorFiltering:
         not rounded up to whole chunks. Returns numpy arrays with a
         leading sample axis; with nchains > 1 the chains are concatenated
         chain-major.
+
+        Options (functionalmf_tpu/models/base.py:675-855):
+
+        * ``callback(model, data, step, **kwargs)``: host code after every
+          sweep. It reads and sets the model's variables through its
+          properties (``model.W``, ``model.Row_constraints = ...``); after
+          ``model.mark_data_dirty()`` the data is prepared again.
+        * ``traced_callback(state, pdata, gen, step) -> (state, pdata)``:
+          the device-side hook. It gets the chain-batched state dict, the
+          prepared data and a generator seeded by (seed, sweep) at a site
+          of its own, and must not wait for the device (no ``.item()``,
+          no ``.cpu()``). There is no compiled loop here, so the two
+          flavours differ only in this contract. Passing both raises.
+        * ``collect_data_keys``: entries of the prepared data (a dict) to
+          record at every collected draw; returned without a chain axis.
+          A name the prepared data does not hold is looked up in the
+          state (``"Row_constraints"``, which a hook rewrites) and comes
+          back chain-major like the model's variables.
+          Unlike the JAX driver's host mode, both flavours collect at the
+          same sweeps: after sweep nburn + nthin, nburn + 2 nthin, ...
+        * ``checkpoint_path`` / ``resume``: the chain head and every
+          collected chunk are written whenever the draws go to the host
+          (and at the end); with ``resume=True`` a run of the same request
+          continues from the file and returns the draws of the
+          uninterrupted run, bit for bit on one device type. Not with a
+          host ``callback``, whose data lives outside ``run_gibbs``.
+        * ``profile_dir``: the first 16 sweeps (at most one chunk) run
+          under ``torch.profiler`` and the trace goes
+          to ``<profile_dir>/trace.json``. The profiler slows every later
+          launch of the process on the host: do not time a run after it.
+        * ``key``: an integer in place of the model's seed for this run's
+          sweeps and hook.
         """
-        unsupported = sorted(set(kwargs) & {
-            "callback", "traced_callback", "collect_data_keys",
-            "checkpoint_path", "resume", "profile_dir", "key"})
-        if unsupported:
-            raise NotImplementedError(f"run_gibbs({', '.join(unsupported)})"
-                                      f" is {_LATER}")
-        if kwargs:
+        if callback is not None and traced_callback is not None:
+            raise ValueError("pass either callback (host) or traced_callback "
+                             "(device), not both")
+        if kwargs and callback is None:
             raise TypeError(f"unexpected run_gibbs kwargs {sorted(kwargs)}")
+        if checkpoint_path and callback is not None:
+            raise ValueError("checkpoint_path is not supported with a host "
+                             "callback: its data lives outside run_gibbs")
         nburn, nthin, nsamples = int(nburn), int(nthin), int(nsamples)
         if nthin < 1 or nsamples < 1 or nburn < 0:
             raise ValueError("need nburn >= 0, nthin >= 1, nsamples >= 1")
+        collect_data_keys = tuple(collect_data_keys)
+        rng = self._rng if key is None else SweepRNG(key, self.device)
         pdata = self.prepare_data(data)
         sweep = self._make_sweep()
         state = self._state
         M = max(1, int(self.max_sweeps_per_call))
+        total = nburn + nthin * nsamples
+        has_tc = traced_callback is not None
 
-        step = 0
-        since_copy = 0
+        step = collected = 0
         pending, chunks = [], []
+        if checkpoint_path and resume and os.path.exists(checkpoint_path):
+            state, step, collected, chunks, pd_ck = self._load_checkpoint(
+                checkpoint_path, pdata_template=pdata if has_tc else None)
+            if pd_ck is not None:
+                pdata = pd_ck
+            if verbose:
+                print("\tResumed at step {} ({} samples)".format(
+                    step, collected))
+
+        def snapshot():
+            out = {k: state[k].clone() for k in self._collect_keys}
+            for k in collect_data_keys:
+                if isinstance(pdata, dict) and k in pdata:
+                    out["data:" + k] = pdata[k].clone()
+                else:
+                    out[k] = state[k].clone()
+            return out
 
         def flush():
-            nonlocal since_copy
             if pending:
-                chunks.append({key: torch.stack([p[key] for p in pending],
-                                                0).cpu().numpy()
-                               for key in self._collect_keys})
+                chunks.append({k: torch.stack([p[k] for p in pending],
+                                              0).float().cpu().numpy()
+                               for k in pending[0]})
                 pending.clear()
-            since_copy = 0
+            if checkpoint_path:
+                self._save_checkpoint(checkpoint_path, state, step,
+                                      collected, chunks,
+                                      pdata=pdata if has_tc else None)
 
-        def one_sweep(st):
-            nonlocal step, since_copy
-            st = sweep(st, pdata, self._rng.at(SweepRNG.SWEEP, step))
-            step += 1
-            since_copy += 1
-            if verbose and step % print_freq == 0:
-                print("\tStep {}".format(step))
-            return st
-
-        for _ in range(nburn):
-            state = one_sweep(state)
-        for _ in range(nsamples):
-            for _ in range(nthin):
-                state = one_sweep(state)
-                if since_copy >= M:
-                    flush()
-            pending.append({key: state[key].clone()
-                            for key in self._collect_keys})
-        flush()
+        self._data_dirty = False
+        while step < total:
+            stop = min(total, step + M)
+            with contextlib.ExitStack() as stack:
+                if profile_dir:
+                    stop = min(stop, step + _PROFILE_MAX_SWEEPS)
+                    stack.enter_context(self._profiled(profile_dir))
+                    profile_dir = None
+                while step < stop:
+                    state = sweep(state, pdata, rng.at(SweepRNG.SWEEP, step))
+                    if has_tc:
+                        state, pdata = traced_callback(
+                            state, pdata, rng.at(SweepRNG.HOOK, step), step)
+                    elif callback is not None:
+                        self._state = state
+                        callback(self, data, step, **kwargs)
+                        state = self._state
+                        if self._data_dirty:
+                            pdata = self.prepare_data(data)
+                            self._data_dirty = False
+                    step += 1
+                    if verbose and step % print_freq == 0:
+                        print("\tStep {}".format(step))
+                    if step > nburn and (step - nburn) % nthin == 0:
+                        pending.append(snapshot())
+                        collected += 1
+            flush()
         self._state = state
-        outs = {key: np.concatenate([c[key] for c in chunks])
-                for key in self._collect_keys}
+        outs = {k: np.concatenate([c[k] for c in chunks])[:nsamples]
+                for k in chunks[0]}
+        # collected data entries have no chain axis
+        data_outs = {k[len("data:"):]: outs.pop(k)
+                     for k in list(outs) if k.startswith("data:")}
         results = self._format_results(outs, nsamples)
+        results.update(data_outs)
         self._report_run_health(results, verbose)
         return results
+
+    @contextlib.contextmanager
+    def _profiled(self, profile_dir):
+        """torch.profiler around the block; the trace goes to
+        ``<profile_dir>/trace.json``."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
     def _format_results(self, outs, nsamples):
         """(nsamples, nchains, ...) -> chain-major (nchains*nsamples, ...);
@@ -483,3 +649,64 @@ class BayesianTensorFiltering:
         if out:
             out["max"] = float(max(out.values()))
         return out
+
+    # ------------------------------------------------------------------
+    # DIC hyperparameter selection (genlasso.py:69-136)
+    # ------------------------------------------------------------------
+    def _default_hyperparam_options(self, hyperparams, lam2=None,
+                                    min_lam2=1e-6, max_lam2=1e3, num_lam2=10,
+                                    **kwargs):
+        if lam2 is None:
+            hyperparams["lam2"] = np.exp(np.linspace(
+                np.log(min_lam2), np.log(max_lam2), num_lam2))[::-1]
+        else:
+            hyperparams["lam2"] = lam2
+
+    def _set_hyperparameters(self, hyperparams):
+        self._state["lam2"] = self._chain_full((), hyperparams["lam2"])
+
+    def select_hyperparams_DIC(self, data, verbose=True, **kwargs):
+        """DIC grid search (functionalmf_tpu/models/base.py:941-977): one
+        run_gibbs per grid point, scored 2 mean(D) - D(mean) with
+        D = -2 logprob; the model keeps the winning hyperparameters.
+        Returns ``{"scores", "options", "best", "fit"}``."""
+        hyperparam_options = {}
+        run_kwarg_names = ("nburn", "nthin", "nsamples", "print_freq",
+                           "callback")
+        run_kwargs = {k: kwargs.pop(k) for k in run_kwarg_names
+                      if k in kwargs}
+        self._default_hyperparam_options(hyperparam_options, **kwargs)
+
+        param_names = list(hyperparam_options.keys())
+        param_options = [hyperparam_options[n] for n in param_names]
+        all_indices = list(np.ndindex(*[len(p) for p in param_options]))
+        dic_scores = np.zeros(len(all_indices))
+        best_results, best_score, best_idx = None, None, None
+
+        for score_idx, indices in enumerate(all_indices):
+            cur = {param_names[p]: param_options[p][i]
+                   for p, i in enumerate(indices)}
+            if verbose:
+                print(" ".join(f"{k}={v}" for k, v in cur.items()))
+            self._set_hyperparameters(cur)
+            results = self.run_gibbs(data, verbose=False, **run_kwargs)
+            # posterior draws only (the results also carry the run's
+            # health counters, which have no sample axis)
+            draws = {k: results[k] for k in self._collect_keys
+                     if k in results}
+            nsamples = next(iter(draws.values())).shape[0]
+            mean_results = {k: v.mean(axis=0) for k, v in draws.items()}
+            D_mean = -2 * self.logprob(data, **mean_results)
+            mean_D = -2 * np.mean([
+                self.logprob(data, **{k: v[i] for k, v in draws.items()})
+                for i in range(nsamples)])
+            dic_scores[score_idx] = 2 * mean_D - D_mean
+            if best_score is None or dic_scores[score_idx] < best_score:
+                best_results, best_score, best_idx = (
+                    results, dic_scores[score_idx], score_idx)
+
+        best = {param_names[p]: param_options[p][i]
+                for p, i in enumerate(all_indices[best_idx])}
+        self._set_hyperparameters(best)
+        return {"scores": dic_scores, "options": hyperparam_options,
+                "best": best, "fit": best_results}

@@ -1,9 +1,9 @@
-"""Constrained black-box-likelihood BTF, the cellfn recipes.
+"""Constrained black-box-likelihood BTF.
 
-Counterpart of functionalmf_tpu/models/constrained.py with a cell
-log-likelihood (``loglikelihood_cellfn``): linear constraints
-``A tau >= c`` on every curve, GASS with the grid or the shrink method
-(``gass_method``), the W update over rows, the blocked V update and the exact scale moves
+Counterpart of functionalmf_tpu/models/constrained.py: linear constraints
+``A tau >= c`` on every curve and optional ``Row_constraints`` on every
+row of W, GASS with the grid or the shrink method (``gass_method``), the
+W update over rows, the blocked V update and the exact scale moves
 (``interweave``, ``factor_rebalance``). The V update runs any of the
 JAX package's schedules:
 
@@ -22,20 +22,51 @@ W rows draw from the GLS Gaussian, the V blocks from the coupled
 (size*k) block precision ``kron(DtLD_blk, I_k) + diag_t(G)`` in t-major
 packing, and the likelihood divides the EP factor out again.
 
-Every GASS candidate log-likelihood goes through the fused functions of
-``ops/fused_ll.py``, with the EP extras when EP is on: on the card, the
-W update is one launch of the row kernel over all (chain, row) pairs,
-and each V round is one launch of the column-block kernel over all of
-its (chain, column, block) pairs. That is the computation of the JAX
+With a cellfn, every GASS candidate log-likelihood goes through the fused
+functions of ``ops/fused_ll.py``, with the EP extras when EP is on: on the
+card, the W update is one launch of the row kernel over all (chain, row)
+pairs, and each V round is one launch of the column-block kernel over all
+of its (chain, column, block) pairs. That is the computation of the JAX
 package's inline einsum (constrained.py:955-970), which is
 ``fused_col_block_ll`` for one pair. ``fuse_cells`` is accepted for
 signature parity and changes nothing. With ``gass_method="shrink"`` an
 update is one launch for the current points and one an iteration of the
 bracket shrinkage, each with one candidate an item.
 
-Not ported yet (NotImplementedError): a model without a cellfn,
-explicit ``loglikelihood_cells``/``loglikelihood_block`` and
-``Row_constraints``.
+The black-box likelihood contract (a model without a cellfn). The user
+writes the JAX package's function for ONE item,
+
+    loglikelihood(data, WV, W, V, row=None, col=None) -> 0-d tensor
+
+with ``data`` the prepared pytree (a dict, tuple or list of tensors, or one
+tensor, on the model's device) and ``row`` / ``col`` indexing ``data``. The
+model lifts it over candidates, items and chains with ``torch.func.vmap``
+(``jax.vmap`` in the JAX package), so ``row``, ``col`` and ``t0`` arrive
+as 0-d index tensors and the function must be made of operations with a
+batching rule (indexing by a tensor, elementwise maths, reductions,
+matmul); where one has none, vmap's error surfaces: there is no Python
+loop over items behind it. The W update calls it with ``row=i`` and the
+row's candidate (WV (m, T), W (k,)); the V update with ``col=j`` and whole
+candidate curves (WV (n, T), V (T, k)), or, where given, the narrower
+``loglikelihood_block(data, WV_blk, W, V_blk, row=None, col=j,
+tslice=(s0, e0))`` (s0, e0 Python ints; seq and joint schedules) or
+``loglikelihood_cells(data, WV_blk, W, V_blk, col=j, t0=, size=)`` (t0 a
+0-d tensor, size a Python int; needed by red-black); the scale moves and
+``logprob`` with neither (WV (n, m, T), the rescaled W and V). With EP the
+model subtracts the EP log-density itself. Items are evaluated in chunks
+sized from the shapes alone: a chunk holds at most 2^26 (data element,
+candidate) pairs, so an intermediate of the user's function takes 256 MiB
+times what it makes for each pair (the 20 components of the dose-response
+mixture: about 5 GiB at most).
+This path is plain PyTorch on the card, as the JAX path is plain XLA: it
+is taken only when no cellfn is given, never because a kernel failed to
+build or launch.
+
+``data_dtype`` stores the prepared data in that dtype. A black-box
+likelihood gets the stored leaves and upcasts what it reads
+(``Y[row].float()``). With a cellfn the kernels read float32 ``y``: one
+float32 copy is made of each prepared tensor, when the first sweep reads
+it, and kept beside the stored one; nothing is converted at a launch.
 """
 from __future__ import annotations
 
@@ -45,9 +76,10 @@ import warnings
 import numpy as np
 import torch
 
+from functionalmf_tpu_torch._runtime import tree_leaves, tree_map
 from functionalmf_tpu_torch.models.base import BayesianTensorFiltering
 from functionalmf_tpu_torch.ops.fused_ll import (
-    KERNEL_CELLS, as_cellfn, fused_col_block_ll_batched,
+    KERNEL_CELLS, as_cellfn, ep_log_density, fused_col_block_ll_batched,
     fused_row_ll_batched)
 from functionalmf_tpu_torch.ops.mvn import (
     _cho_solve, _solve_lt, cholesky_psd, sample_mvn_from_precision)
@@ -59,9 +91,12 @@ from functionalmf_tpu_torch.samplers.slice1d import shrink_slice_1d
 __all__ = ["ConstrainedNonconjugateBayesianTensorFiltering",
            "collapsed_scale_dims", "ep_block_precision"]
 
-_LATER = "not ported yet (ROADMAP.md, Queue 1 item 8)"
 _LOG_LAM2_MIN = float(np.log(1e-5))
 _MAX_SHRINK = 30    # the shrink method's iteration bound (gass.py:53)
+# (data element, candidate) pairs at most of one lifted black-box likelihood
+# call (256 MiB of float32 for each float the user's function makes a
+# pair): the items of an update are evaluated in chunks of that size
+_CHUNK_ELEMS = 1 << 26
 
 
 def collapsed_scale_dims(w_len, ncols, ndepth, nembeds):
@@ -105,10 +140,12 @@ class _Phase:
 
 
 class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
-    """Constrained nonconjugate BTF (reference factor.py:894-1017) with a
-    cellfn. It runs on the card (``device="cuda"``, the default) unless
-    the caller passes ``device="cpu"``; without a card the default
-    raises."""
+    """Constrained nonconjugate BTF (reference factor.py:894-1017). It
+    runs on the card (``device="cuda"``, the default) unless the caller
+    passes ``device="cpu"``; without a card the default raises. With a
+    ``loglikelihood_cellfn`` every candidate goes through the fused
+    kernels; without one the black-box contract of the module docstring
+    applies."""
 
     def __init__(self, nrows, ncols, ndepth, loglikelihood, Constraints,
                  ep_approx=None,
@@ -130,23 +167,33 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                  interweave=True,
                  factor_rebalance=True,
                  **kwargs):
-        if loglikelihood_cellfn is None:
-            raise NotImplementedError(
-                "the port runs the cellfn recipe only: pass "
-                f"loglikelihood_cellfn (other likelihoods are {_LATER})")
-        if loglikelihood_cells is not None or loglikelihood_block is not None:
-            raise NotImplementedError(
-                f"explicit loglikelihood_cells/_block are {_LATER}")
-        if Row_constraints is not None:
-            raise NotImplementedError(f"Row_constraints are {_LATER}")
+        has_cellfn = loglikelihood_cellfn is not None
+        if has_cellfn and (loglikelihood_cells is not None
+                           or loglikelihood_block is not None):
+            raise ValueError(
+                "with a loglikelihood_cellfn every candidate goes through "
+                "the fused kernels; loglikelihood_cells/_block belong to a "
+                "model without a cellfn")
+        if fuse_cells and not has_cellfn:
+            raise ValueError("fuse_cells=True requires loglikelihood_cellfn")
         if gass_method not in ("grid", "shrink"):
             raise ValueError(f"unknown gass_method {gass_method!r}")
         if v_schedule not in ("seq", "redblack"):
             raise ValueError(f"unknown v_schedule {v_schedule!r}")
+        if (v_schedule == "redblack" and not has_cellfn
+                and loglikelihood_cells is None):
+            raise ValueError(
+                "the redblack schedule updates non-adjacent blocks "
+                "simultaneously, which is only an exact Gibbs kernel "
+                "for likelihoods that factorize over the depth axis — "
+                "pass loglikelihood_cells")
         super().__init__(nrows, ncols, ndepth, **kwargs)
         self.loglikelihood = loglikelihood
-        self.loglikelihood_cellfn = as_cellfn(loglikelihood_cellfn)
-        if (self.device.type == "cuda"
+        self.loglikelihood_cells = loglikelihood_cells
+        self.loglikelihood_block = loglikelihood_block
+        self.loglikelihood_cellfn = (as_cellfn(loglikelihood_cellfn)
+                                     if has_cellfn else None)
+        if (has_cellfn and self.device.type == "cuda"
                 and self.loglikelihood_cellfn.name not in KERNEL_CELLS):
             raise ValueError(
                 f"cell function {self.loglikelihood_cellfn.name!r} has no "
@@ -162,6 +209,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         self.gass_method = gass_method
         self.v_schedule = v_schedule
         self.v_block_size = None if v_block_size is None else int(v_block_size)
+        self._y32 = (None, None)     # (prepared tensor, its float32 copy)
 
         Constraints = np.asarray(Constraints, dtype=np.float32)
         if v_schedule == "redblack":
@@ -173,6 +221,19 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         self.Constraints_C = self._t(self._CC_np)
         self.nconstraints = int(Constraints.shape[0])
         self._c_rows = self.Constraints_C.repeat(self.ncols)   # (m*J,)
+
+        # Row_constraints live in the state dict, with a chain axis: a hook
+        # rewrites them every sweep (the dose-response U step) and
+        # interop carries them like every other entry
+        self._has_row_constraints = Row_constraints is not None
+        if self._has_row_constraints:
+            RC = np.asarray(Row_constraints, dtype=np.float32)
+            if RC.ndim not in (2, 3) or RC.shape[-1] != self.nembeds + 1:
+                raise ValueError(
+                    "Row_constraints must be (nR, nembeds + 1) rows [A | c], "
+                    f"got shape {RC.shape}")
+            self._state["Row_constraints"] = self._chain_broadcast(
+                RC, RC.shape[-2:])
 
         nch, n = self.nchains, self.nrows
         self._row_chain = torch.arange(
@@ -284,19 +345,63 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             pair_col=torch.as_tensor(jj.reshape(-1), **i32),
             pair_t0=torch.as_tensor(np.asarray(starts)[bb.reshape(-1)], **i32))
 
+    @property
+    def Row_constraints(self):
+        if not self._has_row_constraints:
+            return None
+        return self._get_var("Row_constraints")
+
+    @Row_constraints.setter
+    def Row_constraints(self, value):
+        if not self._has_row_constraints:
+            raise ValueError("Row_constraints must be given to the "
+                             "constructor to be updatable")
+        self._set_var("Row_constraints", value)
+
     def prepare_data(self, data):
-        """A single (n, m, T) or (n, m, T, 1) tensor, as float32 on the
-        model's device."""
-        if isinstance(data, torch.Tensor):
-            data = data.detach().cpu().numpy()
-        y = np.asarray(data, dtype=np.float32)
-        if y.ndim == 4 and y.shape[-1] == 1:
+        """The data on the model's device, stored in ``data_dtype``
+        (float32 unless given). With a cellfn: one (n, m, T) or
+        (n, m, T, 1) tensor. Without: any pytree of arrays (a dict, tuple
+        or list, or one array), as the user's likelihood reads it."""
+        dt = self.data_dtype or self.dtype
+
+        def leaf(x):
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu().numpy()
+            return torch.as_tensor(np.asarray(x, dtype=np.float32),
+                                   device=self.device).to(dt)
+
+        if self.loglikelihood_cellfn is None:
+            return tree_map(leaf, data)
+        y = leaf(data)
+        if y.dim() == 4 and y.shape[-1] == 1:
             y = y[..., 0]
         want = (self.nrows, self.ncols, self.ndepth)
-        if y.shape != want:
+        if tuple(y.shape) != want:
             raise ValueError(f"data must be one {want} (or {want + (1,)}) "
-                             f"tensor, got shape {y.shape}")
-        return torch.as_tensor(y, device=self.device)
+                             f"tensor, got shape {tuple(y.shape)}")
+        return y
+
+    def _f32(self, y):
+        """The float32 tensor the fused functions read: ``y`` itself, or
+        the one copy made of a prepared tensor stored in another dtype."""
+        if y.dtype == torch.float32:
+            return y
+        if self._y32[0] is not y:
+            self._y32 = (y, y.float())
+        return self._y32[1]
+
+    def _chunk(self, items, per_item):
+        """Items a lifted likelihood call: a pure function of the shapes."""
+        return max(1, min(items, _CHUNK_ELEMS
+                          // max(1, per_item * self.nchains)))
+
+    def _data_work(self, pdata):
+        """Data elements of one (row, column, time) cell: the largest data
+        leaf's elements a cell (the replicates)."""
+        cells = self.nrows * self.ncols * self.ndepth
+        most = max(leaf.numel() for leaf in tree_leaves(pdata))
+        return max(1, most // cells)
 
     # ------------------------------------------------------------------
     # W update: batched GASS over (chain, row)
@@ -308,36 +413,76 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         V = state["V"]
         # constraints from the opposite embedding, shared by the rows of a
         # chain up to the row's dim mask: A[(col, j), a] = sum_t CA[j, t]
-        # V[col, t, a]
+        # V[col, t, a]; the Row_constraints rows [A | c] follow them
         A_base = torch.einsum("jt,cmta->cmja", self.Constraints_A, V).reshape(
             nch, m * self.nconstraints, k)
         c = self._c_rows.expand(B, -1)
+        if self._has_row_constraints:
+            RC = state["Row_constraints"]                  # (nch, nR, k+1)
+            A_base = torch.cat([A_base, RC[:, :, :k]], dim=1)
+            c = torch.cat([c, RC[:, :, k].repeat_interleave(n, dim=0)], dim=1)
         dmask = self._wmask.expand(nch, n, k).reshape(B, k)
 
         L, mu_all = self._w_proposal(V, state["sigma2"])
         v_all = sample_mvn_from_precision(gen, L, chol_factor=True)
         v_all = v_all.reshape(B, k) * dmask
 
-        def Af(Y):                           # (B, G, k) -> (B, G, m*J)
+        def Af(Y):                           # (B, G, k) -> (B, G, m*J + nR)
             G = Y.shape[1]
             Yc = (Y * dmask[:, None]).reshape(nch, n * G, k)
             return torch.einsum("cgk,cjk->cgj", Yc, A_base).reshape(B, G, -1)
 
-        bt = V.reshape(nch, m * T, k)
-        y2 = y.reshape(n, m * T)
-        extras = tuple(e.reshape(n, m * T) for e in self._ep)
-        cellfn = self.loglikelihood_cellfn
+        if self.loglikelihood_cellfn is None:
+            loglik = self._w_loglik_blackbox(y, V, dmask)
+        else:
+            bt = V.reshape(nch, m * T, k)
+            y2 = self._f32(y).reshape(n, m * T)
+            extras = tuple(e.reshape(n, m * T) for e in self._ep)
+            cellfn = self.loglikelihood_cellfn
 
-        def loglik(cands):                   # (B, G, k) -> (B, G)
-            w = (cands * dmask[:, None]).contiguous()
-            return fused_row_ll_batched(w, bt, y2, self._row_chain,
-                                        self._row_idx, cellfn, extras)
+            def loglik(cands):               # (B, G, k) -> (B, G)
+                w = (cands * dmask[:, None]).contiguous()
+                return fused_row_ll_batched(w, bt, y2, self._row_chain,
+                                            self._row_idx, cellfn, extras)
 
         x_new = self._gass_update(
             gen, state["W"].reshape(B, k), loglik, Af, c, v=v_all,
             dim_mask=dmask,
             mu=None if mu_all is None else mu_all.reshape(B, k))
         return dict(state, W=x_new.reshape(nch, n, k) * self._wmask)
+
+    def _w_loglik_blackbox(self, pdata, V, dmask):
+        """The W update's candidate log-likelihoods through the user's
+        function (constrained.py:498-507): ``user_ll(data, tau_g, w_g, V,
+        row=i)`` less the EP log-density of row i, lifted over candidates,
+        rows (in chunks) and chains."""
+        nch, n, m, T, k = (self.nchains, self.nrows, self.ncols, self.ndepth,
+                           self.nembeds)
+        user_ll, ep = self.loglikelihood, self._ep
+        rows = torch.arange(n, device=self.device)
+        work = m * T * self._data_work(pdata)
+        vmap = torch.func.vmap
+
+        def per_row(i, cands_i, V_c, *ep_i):       # cands_i (G, k)
+            tau = torch.einsum("gk,mtk->gmt", cands_i, V_c)
+
+            def one(tau_g, w_g):
+                ll = user_ll(pdata, tau_g, w_g, V_c, row=i, col=None)
+                if ep_i:
+                    ll = ll - ep_log_density(tau_g, *ep_i).sum()
+                return ll
+
+            return vmap(one)(tau, cands_i)
+
+        def loglik(cands):                          # (B, G, k) -> (B, G)
+            G = cands.shape[1]
+            w = (cands * dmask[:, None]).reshape(nch, n, G, k)
+            over_rows = vmap(per_row, in_dims=(0, 0, None) + (0,) * len(ep),
+                             chunk_size=self._chunk(n, G * work))
+            return vmap(lambda w_c, V_c: over_rows(rows, w_c, V_c, *ep))(
+                w, V).reshape(nch * n, G)
+
+        return loglik
 
     def _gass_update(self, gen, x, loglik, A, c, **kw):
         """One batched GASS update of x (B, D) by the model's method; its
@@ -393,8 +538,91 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         """Candidate log-likelihoods of every pair of phase ``ph``.
         W: (nch, n, k) masked; cands: (P, G, size, k). Returns (P, G)."""
         return fused_col_block_ll_batched(
-            cands.contiguous(), W, y, ph.pair_chain, ph.pair_col, ph.pair_t0,
-            self.loglikelihood_cellfn, self._ep)
+            cands.contiguous(), W, self._f32(y), ph.pair_chain, ph.pair_col,
+            ph.pair_t0, self.loglikelihood_cellfn, self._ep)
+
+    def _v_loglik_blackbox(self, pdata, W, X, ph):
+        """A V round's candidate log-likelihoods through the user's
+        functions, lifted over candidates, blocks, columns (in chunks) and
+        chains; (B, G, size*k) -> (B, G), B = (chain, column, block).
+
+        * ``loglikelihood_cells``: the block's cells alone, ``t0`` a 0-d
+          tensor (constrained.py:955-970);
+        * else ``loglikelihood_block``: the block's cells alone, static
+          ``tslice`` (constrained.py:753-766);
+        * else whole curves rebuilt around the block, ``user_ll(data,
+          tau_g, W, V_g, col=j)`` (constrained.py:767-791).
+
+        Each less the EP log-density over the cells it covers."""
+        nch, n, m, T, k = (self.nchains, self.nrows, self.ncols, self.ndepth,
+                           self.nembeds)
+        nblk, size = len(ph.starts), ph.size
+        user_ll, user_blk, user_cells = (
+            self.loglikelihood, self.loglikelihood_block,
+            self.loglikelihood_cells)
+        ep = tuple(e.permute(1, 0, 2) for e in self._ep)     # (m, n, T)
+        cols = torch.arange(m, device=self.device)
+        t0s = torch.as_tensor(ph.starts, device=self.device)
+        vmap = torch.func.vmap
+        if user_cells is None and nblk != 1:
+            raise ValueError("a round of several blocks needs "
+                             "loglikelihood_cells")
+        s0 = ph.starts[0]
+        e0 = s0 + size
+
+        def ep_term(tau_g, ep_j, tid=None):
+            if not ep_j:
+                return 0.0
+            mu, sig = ep_j if tid is None else (e[:, tid] for e in ep_j)
+            return ep_log_density(tau_g, mu, sig).sum()
+
+        def per_block(t0, tid, cands_b, j, W_c, *ep_j):   # cands_b (G,size,k)
+            tau = torch.einsum("gtk,nk->gnt", cands_b, W_c)
+
+            def one(tau_g, Vb_g):
+                return user_cells(pdata, tau_g, W_c, Vb_g, col=j, t0=t0,
+                                  size=size) - ep_term(tau_g, ep_j, tid)
+
+            return vmap(one)(tau, cands_b)
+
+        def per_col(j, cands_j, x_j, W_c, *ep_j):   # cands_j (nblk,G,size,k)
+            if user_cells is not None:
+                nep = (None,) * len(ep_j)
+                return vmap(per_block, in_dims=(0, 0, 0, None, None) + nep)(
+                    t0s, ph.tidx, cands_j, j, W_c, *ep_j)
+            cands_b = cands_j[0]
+            if user_blk is not None:
+                tau = torch.einsum("gtk,nk->gnt", cands_b, W_c)
+                ep_b = tuple(e[:, s0:e0] for e in ep_j)
+
+                def one(tau_g, Vb_g):
+                    return user_blk(pdata, tau_g, W_c, Vb_g, row=None, col=j,
+                                    tslice=(s0, e0)) - ep_term(tau_g, ep_b)
+
+                return vmap(one)(tau, cands_b)[None]
+            G = cands_b.shape[0]
+            Vg = torch.cat([x_j[:s0].expand(G, -1, -1), cands_b,
+                            x_j[e0:].expand(G, -1, -1)], dim=1)
+            tau = torch.einsum("gtk,nk->gnt", Vg, W_c)
+
+            def one(tau_g, V_g):
+                return user_ll(pdata, tau_g, W_c, V_g, row=None,
+                               col=j) - ep_term(tau_g, ep_j)
+
+            return vmap(one)(tau, Vg)[None]
+
+        whole = user_cells is None and user_blk is None
+        work = n * (T if whole else nblk * size) * self._data_work(pdata)
+
+        def loglik(cands):                          # (B, G, D) -> (B, G)
+            G = cands.shape[1]
+            c6 = cands.reshape(nch, m, nblk, G, size, k)
+            over_cols = vmap(per_col, in_dims=(0, 0, 0, None) + (0,) * len(ep),
+                             chunk_size=self._chunk(m, G * work))
+            return vmap(lambda c_c, X_c, W_c: over_cols(
+                cols, c_c, X_c, W_c, *ep))(c6, X, W).reshape(-1, G)
+
+        return loglik
 
     def _v_ep_terms(self, W):
         """The EP Gram and moment of every (column, t) given W
@@ -464,10 +692,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             M = torch.einsum("bjt,cmbgtk->cmbgjk", ph.CA_blk, Y6)
             return torch.einsum("cnk,cmbgjk->cmbgnj", W, M).reshape(B, G, -1)
 
-        def loglik(cands):                   # (B, G, D) -> (B, G)
-            G = cands.shape[1]
-            return self._blocks_loglik(W, y, ph,
-                                       cands.reshape(B, G, size, k))
+        if self.loglikelihood_cellfn is None:
+            loglik = self._v_loglik_blackbox(y, W, X, ph)
+        else:
+            def loglik(cands):               # (B, G, D) -> (B, G)
+                G = cands.shape[1]
+                return self._blocks_loglik(W, y, ph,
+                                           cands.reshape(B, G, size, k))
 
         Xb_cur = X[:, :, tidx, :].reshape(B, D)
         Xb_new = self._gass_update(gen, Xb_cur, loglik, A_op, c_all, v=v_b,
@@ -499,6 +730,65 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         s_hi = torch.clamp(s_hi, max=1e6) * (1.0 - 1e-6)
         return s_lo, s_hi
 
+    def _rc_values(self, W, RC):
+        """The row constraints' values A_r w_i and offsets, (nch, n*nR)."""
+        k = self.nembeds
+        rv = torch.einsum("cnk,cjk->cnj", W, RC[:, :, :k])
+        cs = RC[:, None, :, k].expand_as(rv)
+        return rv.reshape(self.nchains, -1), cs.reshape(self.nchains, -1)
+
+    @staticmethod
+    def _bracket_from_scale(s_lo, s_hi):
+        """The bracket of x in [-6, 6] when W scales by e^{-x}, from the
+        feasible interval of the scale (constrained.py:1118-1121; it is
+        reopened to hold x = 0, as in the reference)."""
+        lo = torch.clamp(-torch.log(s_hi), min=-6.0).clamp(max=0.0)
+        hi = torch.clamp(-torch.log(s_lo), max=6.0).clamp(min=0.0)
+        return lo, hi
+
+    def _rc_global_bracket(self, W, RC):
+        """Bracket of the collapsed global move (W, V) -> (W e^{-x},
+        V e^{x}) under the row constraints (constrained.py:1111-1121)."""
+        return self._bracket_from_scale(
+            *self._scale_bounds(*self._rc_values(W, RC)))
+
+    def _rc_factor_bracket(self, W, RC, kk):
+        """Bracket of factor kk's rebalance: the constraint values are
+        affine in s = e^{-x}, rest + s part_kk >= c
+        (constrained.py:1192-1210)."""
+        nch, k = self.nchains, self.nembeds
+        rvf = torch.einsum("cnk,cjk->cnj", W, RC[:, :, :k])
+        pk = W[:, :, kk, None] * RC[:, None, :, kk]
+        num = RC[:, None, :, k].expand_as(pk) - (rvf - pk)
+        ratio = (num / torch.where(pk == 0, 1.0, pk)).reshape(nch, -1)
+        pk = pk.reshape(nch, -1)
+        s_lo = torch.where(pk > 0, ratio, -torch.inf).amax(-1)
+        s_hi = torch.where(pk < 0, ratio, torch.inf).amin(-1)
+        s_lo = torch.clamp(s_lo, min=1e-6) * (1.0 + 1e-6)
+        s_hi = torch.clamp(s_hi, max=1e6) * (1.0 - 1e-6)
+        return self._bracket_from_scale(s_lo, s_hi)
+
+    def _sigma2_bracket(self, x0, Av, cs_curve, W, RC):
+        """Bracket of the ASIS sigma2 move, x = log sigma2, W scales by
+        s = exp((x - x0) / 2): the curve constraints' values ``Av`` (None
+        where they form a cone) and the row constraints' both scale with s
+        (constrained.py:1303-1324)."""
+        if Av is None and RC is None:
+            return x0 - 12.0, x0 + 12.0
+        vals, cs = [], []
+        if Av is not None:
+            vals.append(Av)
+            cs.append(cs_curve)
+        if RC is not None:
+            rv, rc = self._rc_values(W, RC)
+            vals.append(rv)
+            cs.append(rc)
+        s_lo, s_hi = self._scale_bounds(torch.cat(vals, -1),
+                                        torch.cat(cs, -1))
+        lo = torch.maximum(x0 + 2.0 * torch.log(s_lo), x0 - 12.0)
+        hi = torch.minimum(x0 + 2.0 * torch.log(s_hi), x0 + 12.0)
+        return torch.minimum(lo, x0), torch.maximum(hi, x0)
+
     def _interweave_scales(self, state, y, gen):
         """functionalmf_tpu/models/constrained.py:1020-1338, every chain
         at once (per-chain scalars are (nchains,) tensors)."""
@@ -509,6 +799,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         tau = torch.einsum("cnk,cmtk->cnmt", W, V)
         zeros = torch.zeros(nch, device=dev)
         c4 = (slice(None), None, None, None)
+        RC = state["Row_constraints"] if self._has_row_constraints else None
 
         if self.sample_W and self.sample_V:
             inv_tau2 = 1.0 / torch.clamp(state["Tau2"], self.stability,
@@ -540,7 +831,10 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                 return ((dV_free - dW_free) * x + w_term(x, 0.0, W2)
                         + v_term(x, 0.0, Qbar))
 
-            x_c, _ = shrink_slice_1d(zeros, logdens_c, -6.0, 6.0, gen)
+            lo_c, hi_c = -6.0, 6.0
+            if RC is not None:       # W scales by e^{-x}
+                lo_c, hi_c = self._rc_global_bracket(W, RC)
+            x_c, _ = shrink_slice_1d(zeros, logdens_c, lo_c, hi_c, gen)
             c_w, c_v = torch.exp(-x_c), torch.exp(x_c)
             W = W * c_w[c4[:3]]
             V = V * c_v[c4]
@@ -565,7 +859,11 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                         return (jac * x + w_term(x, W2_rest, w2_kk)
                                 + v_term(x, Q_rest, q_kk))
 
-                    x_f, _ = shrink_slice_1d(zeros, logdens_f, -6.0, 6.0, gen)
+                    lo_f, hi_f = -6.0, 6.0
+                    if RC is not None:
+                        lo_f, hi_f = self._rc_factor_bracket(W, RC, kk)
+                    x_f, _ = shrink_slice_1d(zeros, logdens_f, lo_f, hi_f,
+                                             gen)
                     f_w, f_v = torch.exp(-x_f), torch.exp(x_f)
                     onehot = eye_k[kk]
                     fw_k = 1.0 + (f_w[:, None] - 1.0) * onehot    # (nch, k)
@@ -595,10 +893,20 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                               tau).reshape(nch, -1)
             cs_curve = self.Constraints_C.repeat(
                 self.nrows * self.ncols).expand(nch, -1)
-        cellfn = self.loglikelihood_cellfn
+        # the full-tensor likelihood of the slice targets: the cellfn
+        # (terms of y alone are constant in the rescale), else the user's
+        # function on the rescaled tau, W and V (constrained.py:1256-1266)
+        cellfn, user_ll = self.loglikelihood_cellfn, self.loglikelihood
+        if cellfn is not None:
+            y32 = self._f32(y)
 
-        def full_ll(tau_s):
-            return cellfn(y[None], tau_s).sum((1, 2, 3))
+            def full_ll(tau_s, W_s, V_s):
+                return cellfn(y32[None], tau_s).sum((1, 2, 3))
+        else:
+            def full_ll(tau_s, W_s, V_s):
+                return torch.func.vmap(
+                    lambda t, w, v: user_ll(y, t, w, v, row=None, col=None))(
+                        tau_s, W_s, V_s)
 
         if self.sample_lam2 and self.sample_V:
             x0 = torch.log(torch.clamp(state["lam2"], min=1e-20))
@@ -614,7 +922,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
 
             def logdens(x):
                 s = torch.exp(0.5 * (x - x0))
-                return -0.5 * x - torch.exp(-x) * inv_a + full_ll(s[c4] * tau)
+                return (-0.5 * x - torch.exp(-x) * inv_a
+                        + full_ll(s[c4] * tau, W, s[c4] * V))
 
             x_new, _ = shrink_slice_1d(x0, logdens, lo, hi, gen)
             s = torch.exp(0.5 * (x_new - x0))
@@ -626,19 +935,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
 
         if self.sample_sigma2 and self.sample_W:
             x0 = torch.log(torch.clamp(state["sigma2"], min=1e-20))
-            if cone:
-                lo, hi = x0 - 12.0, x0 + 12.0
-            else:
-                s_lo, s_hi = self._scale_bounds(Av, cs_curve)
-                lo = torch.maximum(x0 + 2.0 * torch.log(s_lo), x0 - 12.0)
-                hi = torch.minimum(x0 + 2.0 * torch.log(s_hi), x0 + 12.0)
-            lo = torch.minimum(lo, x0)
-            hi = torch.maximum(hi, x0)
+            lo, hi = self._sigma2_bracket(x0, Av, cs_curve, W, RC)
             a, b = self.sigma2_a, self.sigma2_b
 
             def logdens(x):
                 s = torch.exp(0.5 * (x - x0))
-                return -a * x - b * torch.exp(-x) + full_ll(s[c4] * tau)
+                return (-a * x - b * torch.exp(-x)
+                        + full_ll(s[c4] * tau, s[c4[:3]] * W, V))
 
             x_new, _ = shrink_slice_1d(x0, logdens, lo, hi, gen)
             s = torch.exp(0.5 * (x_new - x0))
@@ -678,18 +981,25 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                                         row=None, col=None))
 
     def check_constraints(self, atol=1e-5):
-        """Every curve constraint A tau >= c holds, across all chains."""
+        """Every curve constraint A tau >= c and, where given, every row
+        constraint A_r w_i >= c_r holds, across all chains."""
         return self._worst_constraint_slack() >= -atol
 
     def _worst_constraint_slack(self):
-        """min over chains, cells and constraints of A tau - c."""
-        W = np.asarray(self.W)
-        V = np.asarray(self.V)
-        if W.ndim == 2:
-            W, V = W[None], V[None]
+        """min over chains, cells and constraints of A tau - c (and of
+        A_r w_i - c_r, each chain against its own Row_constraints)."""
+        W = self._state["W"].cpu().numpy()
+        V = self._state["V"].cpu().numpy()
         tau = np.einsum("cnk,cmtk->cnmt", W, V)
         vals = np.einsum("jt,cnmt->cnmj", self._CA_np, tau)
-        return float((vals - self._CC_np).min())
+        worst = float((vals - self._CC_np).min())
+        if self._has_row_constraints:
+            RC = self._state["Row_constraints"].cpu().numpy()
+            k = self.nembeds
+            rvals = (np.einsum("cnk,cjk->cnj", W, RC[:, :, :k])
+                     - RC[:, None, :, k])
+            worst = min(worst, float(rvals.min()))
+        return worst
 
     def run_gibbs(self, data, *args, **kwargs):
         """Refuse to sample from an infeasible start: GASS is a valid

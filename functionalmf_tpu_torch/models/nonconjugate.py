@@ -1,0 +1,92 @@
+"""Unconstrained black-box-likelihood BTF by elliptical slice sampling.
+
+Counterpart of functionalmf_tpu/models/nonconjugate.py (reference
+functionalmf/factor.py:567-612): joint ESS updates of W and of V under
+the trend-filtering prior, with a user-supplied
+
+    loglikelihood(W, V, data) -> 0-d tensor
+
+for ONE chain (W (n, k), V (m, T, k), ``data`` the prepared pytree on the
+model's device). The model lifts it over the chains with
+``torch.func.vmap``, so it must be made of operations with a batching
+rule; plain PyTorch on the card, as the JAX path is plain XLA. The
+ellipse runs in the natural (masked) array shapes, and the V prior draws
+come from one batched dense Cholesky.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from functionalmf_tpu_torch._runtime import tree_map
+from functionalmf_tpu_torch.models.base import BayesianTensorFiltering
+from functionalmf_tpu_torch.samplers.ess import elliptical_slice
+
+__all__ = ["NonconjugateBayesianTensorFiltering"]
+
+
+class NonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
+    """ESS-based BTF with loglikelihood(W, V, data) (factor.py:567-607).
+    It runs on the card (``device="cuda"``, the default) unless the caller
+    passes ``device="cpu"``; without a card the default raises."""
+
+    def __init__(self, nrows, ncols, ndepth, loglikelihood,
+                 ess_max_iters=100, **kwargs):
+        super().__init__(nrows, ncols, ndepth, **kwargs)
+        self.loglikelihood = loglikelihood
+        self.ess_max_iters = int(ess_max_iters)
+
+    def prepare_data(self, data):
+        dt = self.data_dtype or self.dtype
+
+        def leaf(x):
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu().numpy()
+            return torch.as_tensor(np.asarray(x, dtype=np.float32),
+                                   device=self.device).to(dt)
+        return tree_map(leaf, data)
+
+    def _lifted(self, data):
+        """(W (nch, n, k), V (nch, m, T, k)) -> (nch,)."""
+        user_ll = self.loglikelihood
+        return torch.func.vmap(lambda W, V: user_ll(W, V, data))
+
+    # ------------------------------------------------------------------
+    def _update_W_ess(self, state, data, gen):
+        """factor.py:572-582: a prior draw from N(0, sigma2 I) on the
+        lower-triangular support, then one joint ESS step over all of W."""
+        mask, V = self._wmask, state["V"]
+        prior = (torch.randn(state["W"].shape, generator=gen,
+                             device=self.device)
+                 * torch.sqrt(state["sigma2"])[:, None, None] * mask)
+        ll = self._lifted(data)
+        x, _ = elliptical_slice(state["W"], prior,
+                                lambda Wf: ll(Wf * mask, V), gen,
+                                max_iters=self.ess_max_iters)
+        return dict(state, W=x * mask)
+
+    def _update_V_ess(self, state, data, gen):
+        """factor.py:584-590: a prior draw from the block trend-filtering
+        precision (batched over columns), then one joint ESS step over V."""
+        nch, m, k, T = self.nchains, self.ncols, self.nembeds, self.ndepth
+        draw = self._sample_v_prior(gen, state["lam2"], state["Tau2"])
+        prior = draw.reshape(nch, m, k, T).transpose(-1, -2)   # (nch,m,T,k)
+        W = state["W"]
+        ll = self._lifted(data)
+        x, _ = elliptical_slice(state["V"], prior, lambda Vf: ll(W, Vf), gen,
+                                max_iters=self.ess_max_iters)
+        return dict(state, V=x.contiguous())
+
+    def _make_sweep(self):
+        def sweep(state, pdata, gen):
+            return self._prior_sweep(state, pdata, gen,
+                                     self._update_W_ess, self._update_V_ess)
+        return sweep
+
+    # ------------------------------------------------------------------
+    def logprob(self, data, **params):
+        W = torch.as_tensor(np.asarray(params.get("W", self.W), np.float32),
+                            device=self.device)
+        V = torch.as_tensor(np.asarray(params.get("V", self.V), np.float32),
+                            device=self.device)
+        return float(self.loglikelihood(W, V, self.prepare_data(data)))

@@ -2,12 +2,14 @@
 
 Counterpart of functionalmf_tpu/utils/nmf.py (reference functionalmf/
 utils.py:276-420), host numpy, re-implemented here because importing the
-JAX package imports jax: masked-ALS with a lower-triangular W and the
-optional monotone (PAV) projection. Every least-squares subproblem is
-k-dimensional, so its Gram matrix and moment vector are assembled for all
-subproblems at once with einsums and each is solved by the Gram-form
-Lawson-Hanson NNLS in numpy (the JAX package's fallback when its native
-host library is absent).
+JAX package imports jax: masked-ALS with a lower-triangular W, the
+optional monotone (PAV) projection, an optional ``max_entry`` cap on the
+reconstruction and optional binary row features coupled through a
+nonnegative loading matrix R (then (W, V, R) comes back). Every
+least-squares subproblem is k-dimensional, so its Gram matrix and moment
+vector are assembled for all subproblems at once with einsums and each is
+solved by the Gram-form Lawson-Hanson NNLS in numpy (the JAX package's
+fallback when its native host library is absent).
 """
 from __future__ import annotations
 
@@ -63,6 +65,26 @@ def _nnls_gram_batch(G, F):
     return np.stack([_nnls_gram_one(G[i], F[i]) for i in range(len(F))])
 
 
+def _capped_resolve(G, f, x0, cap_design, max_entry):
+    """Re-solve one Gram-form LS under 0 <= cap_design @ x <= max_entry and
+    x >= floor (the reference's SLSQP ``max_entry`` projection,
+    utils.py:300-312, on the Gram objective)."""
+    from scipy.optimize import LinearConstraint, minimize
+
+    n = len(x0)
+    lc = LinearConstraint(cap_design, 0.0, max_entry)
+    res = minimize(
+        lambda x: 0.5 * x @ G @ x - f @ x,
+        jac=lambda x: G @ x - f,
+        x0=np.clip(x0, 1e-6, None),
+        bounds=[(1e-6, None)] * n,
+        constraints=[lc],
+        method="SLSQP",
+        options={"ftol": 1e-10, "maxiter": 500},
+    )
+    return res.x
+
+
 def _solve_block(G, F, ndims=None):
     """Batched masked-dimension NNLS with the positivity floor.
 
@@ -86,15 +108,19 @@ def _solve_block(G, F, ndims=None):
     return np.where(active, np.clip(X, _FLOOR, np.inf), 0.0)
 
 
-def tensor_nmf(Y, nembeds, monotone=False, rng=None):
+def tensor_nmf(Y, nembeds, monotone=False, max_entry=None,
+               row_features=None, rng=None):
     """Masked-ALS nonnegative factorization of Y (n, m, T[, r]) from a
-    gamma(1, 1) draw of W then V, 30 steps at most, stopping when the
-    relative drop of the fit error is at most 1e-4 (the JAX package's
+    gamma(1, 1) draw of W then V (then R), 30 steps at most, stopping when
+    the relative drop of the fit error is at most 1e-4 (the JAX package's
     defaults): returns (W, V), W (n, k) lower-triangular, V (m, T, k),
-    both >= 1e-3 where active. functionalmf_tpu/utils/nmf.py:tensor_nmf
-    without its ``max_entry`` cap and ``row_features`` coupling (not ported
-    yet) and without the knobs no caller sets (given W/V, fit_W/fit_V,
-    max_steps, tol, verbose)."""
+    both >= 1e-3 where active; with ``row_features`` (n, p) (NaN =
+    missing) returns (W, V, R), R (p, k) the features' nonnegative
+    loadings, coupled into the row updates. ``max_entry`` caps every
+    entry of the reconstruction (and of W R^T): a row, cell or feature
+    over the cap is solved again under the cap by SLSQP.
+    functionalmf_tpu/utils/nmf.py:tensor_nmf without the knobs no caller
+    sets (given W/V, fit_W/fit_V, max_steps, tol, verbose)."""
     from functionalmf_tpu_torch.utils.pav import factor_pav
 
     rng = np.random.default_rng() if rng is None else rng
@@ -108,6 +134,13 @@ def tensor_nmf(Y, nembeds, monotone=False, rng=None):
     if n > 1:
         W[np.triu_indices(k, k=1)] = 0
     V = rng.gamma(1, 1, size=(m, T, k))
+    R = None
+    if row_features is not None:
+        row_features = np.asarray(row_features, dtype=float)
+        R = rng.gamma(1, 1, size=(row_features.shape[1], k))
+        rf_obs = ~np.isnan(row_features)
+        rf_cnt = rf_obs.astype(float)
+        rf_z = np.where(rf_obs, row_features, 0.0)
 
     # observed-replicate counts and replicate-summed data, fixed all run
     obs = ~np.isnan(Y)
@@ -122,16 +155,44 @@ def tensor_nmf(Y, nembeds, monotone=False, rng=None):
         # row subproblems: min over w>=0 of sum_jt cnt * (y - <V_jt, w>)^2
         G = np.einsum("ijt,jta,jtb->iab", cnt, V, V)      # (n, k, k)
         F = np.einsum("ijt,jta->ia", Ys, V)               # (n, k)
+        if R is not None:
+            G += np.einsum("ip,pa,pb->iab", rf_cnt, R, R)
+            F += np.einsum("ip,pa->ia", rf_z, R)
         W = _solve_block(G, F, ndims=ndims)
+        if max_entry is not None:
+            recon_max = np.einsum("ia,jta->ijt", W, V).max(axis=(1, 2))
+            for i in np.nonzero(recon_max > max_entry)[0]:
+                d = ndims[i]
+                W[i, :d] = _capped_resolve(
+                    G[i, :d, :d], F[i, :d], W[i, :d],
+                    V[..., :d].reshape(-1, d), max_entry)
 
         # (column, depth) subproblems share W; masks differ per cell
         G = np.einsum("ijt,ia,ib->jtab", cnt, W, W)       # (m, T, k, k)
         F = np.einsum("ijt,ia->jta", Ys, W)               # (m, T, k)
         V = _solve_block(G.reshape(-1, k, k),
                          F.reshape(-1, k)).reshape(m, T, k)
+        if max_entry is not None:
+            # the reference sums the reconstruction over the rows here (it
+            # takes the maximum in the row step): kept, so that both
+            # packages solve the same cells again (ROADMAP.md, Queue 3)
+            recon_max = np.einsum("ia,jta->jt", W, V)
+            for j, t in zip(*np.nonzero(recon_max > max_entry)):
+                V[j, t] = _capped_resolve(G[j, t], F[j, t], V[j, t], W,
+                                          max_entry)
         if monotone:
             for j in range(m):
                 factor_pav(W, V[j], in_place=True)
+
+        if R is not None:
+            # feature subproblems: columns of row_features against W rows
+            Gf = np.einsum("ip,ia,ib->pab", rf_cnt, W, W)
+            Ff = np.einsum("ip,ia->pa", rf_z, W)
+            R = np.where(rf_obs.any(axis=0)[:, None], _solve_block(Gf, Ff), R)
+            if max_entry is not None:
+                recon_max = (W @ R.T).max(axis=0)
+                for p in np.nonzero(recon_max > max_entry)[0]:
+                    R[p] = _capped_resolve(Gf[p], Ff[p], R[p], W, max_entry)
 
         # reference's convergence metric: sqrt of the total (not mean)
         # squared error over observed cells, relative-delta stop
@@ -140,4 +201,4 @@ def tensor_nmf(Y, nembeds, monotone=False, rng=None):
         delta = (prev_rmse - rmse) / rmse if rmse > 0 else 0.0
         if delta <= _TOL:
             break
-    return W, V
+    return (W, V) if R is None else (W, V, R)

@@ -8,6 +8,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "functionalmf_tpu_torch",
     "functionalmf_tpu_torch._runtime",
+    "functionalmf_tpu_torch.apps.doseresponse.empirical_bayes",
+    "functionalmf_tpu_torch.apps.doseresponse.feature_importance",
+    "functionalmf_tpu_torch.apps.doseresponse.fit",
+    "functionalmf_tpu_torch.apps.doseresponse.logistic",
+    "functionalmf_tpu_torch.apps.doseresponse.plots",
+    "functionalmf_tpu_torch.apps.doseresponse.results",
+    "functionalmf_tpu_torch.apps.doseresponse.select_btf",
+    "functionalmf_tpu_torch.apps.doseresponse.sim",
     "functionalmf_tpu_torch.apps.flutrends.benchmark",
     "functionalmf_tpu_torch.apps.politics.benchmark",
     "functionalmf_tpu_torch.examples.binomial_tensor_filtering",
@@ -19,6 +27,7 @@ MODULES = [
     "functionalmf_tpu_torch.models.constrained",
     "functionalmf_tpu_torch.models.gaussian",
     "functionalmf_tpu_torch.models.negbinom",
+    "functionalmf_tpu_torch.models.nonconjugate",
     "functionalmf_tpu_torch.ops._build",
     "functionalmf_tpu_torch.ops.banded",
     "functionalmf_tpu_torch.ops.fused_ll",
@@ -28,6 +37,7 @@ MODULES = [
     "functionalmf_tpu_torch.ops.penalty",
     "functionalmf_tpu_torch.ops.polyagamma",
     "functionalmf_tpu_torch.samplers.conjugate",
+    "functionalmf_tpu_torch.samplers.ess",
     "functionalmf_tpu_torch.samplers.gass",
     "functionalmf_tpu_torch.samplers.horseshoe",
     "functionalmf_tpu_torch.samplers.slice1d",
