@@ -1,10 +1,11 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU through its paths and check
 them: the red-black constrained-Poisson recipe (grid and shrink GASS), the
-GDELT politics benchmark with EP centring and its NegBinom arm, the
-conjugate and Polya-Gamma families (the flu-trends app, Gaussian and
-Binomial models at the GDELT width), and the black-box-likelihood paths
-(the dose-response app with its U hook in both flavours, Row_constraints
-and a device hook on the Poisson recipe, checkpoint/resume, ESS).
+GDELT politics benchmark with EP centring and its NegBinom and PGDS arms,
+the conjugate and Polya-Gamma families (the flu-trends app, Gaussian and
+Binomial models at the GDELT width), the black-box-likelihood paths (the
+dose-response app with its U hook in both flavours, Row_constraints and a
+device hook on the Poisson recipe, checkpoint/resume, ESS), PGDS and the
+Poisson example.
 
     python3 chip_smoke.py
 
@@ -69,9 +70,22 @@ Phases (any failure raises and exits non-zero before the last line):
      equals the whole run exactly); NonconjugateBayesianTensorFiltering
      (ESS) with a Poisson log-link likelihood at 19x19x228 (finite draws)
      and at a toy shape on the card and on the CPU (rel < 0.12);
+     PGDS: the politics app with its in-process PGDS arm (no --no-pgds;
+     60 + 10 sweeps, seq + EP), PGDS draws finite, Mu >= 0, factor columns
+     summing to 1 within 1e-4, a finite "Schein et al (2016)" row and the
+     BTF checks of phase 4 on the PGDS warm start; fit_pgds timed over 50
+     + 50 warmed sweeps; PGDS on the card and on the CPU at 8x7x20, K=3
+     (posterior-mean rates within twice the spread of two CPU seeds) and
+     the binary mode on the card; the Poisson example through its main at
+     k=3, seed 1, 100 + 100 sweeps an arm: the 9-metric table finite,
+     every Poisson-BTF draw positive, its V rounds two seq rounds of 8 and
+     a tail of 4, exactly one row and three column launches of the non-EP
+     kernels a sweep and none of the EP ones; each of these phases prints
+     its seconds;
  10. where the time goes: ms a sweep of every phase of the new paths
      (nu2 or Polya-Gamma draw, R moves, priors, W update, V update split
-     into band assembly, equilibrate + retile, factor scan, solve scans),
+     into band assembly, equilibrate + retile, factor scan, solve scans;
+     the PGDS sampler's eight steps at 19x19x228, K=5 and 11x12x20, K=3),
      each with a synchronise around it;
  11. kernels: each of the four kernels (row and column-block, each with and
      without EP) against its plain PyTorch version on the card, at every
@@ -80,15 +94,16 @@ Phases (any failure raises and exits non-zero before the last line):
      the shrink method's shape; the W update at
      nchains 1 and 4; column blocks of 8 in a colour phase at nchains 1
      and 4 and in a seq round, the 4-wide tail, the joint update's 228,
-     and a joint update at T=1000 on synthetic counts), NaN y at held-out
-     pairs; the EP variants with the politics path's own EP (the app's NMF
+     and a joint update at T=1000 on synthetic counts; the Poisson
+     example's 11x12x20, k=3: R=11, a seq round and the tail of 12
+     columns), NaN y at held-out pairs; the EP variants with the politics path's own EP (the app's NMF
      warm start and ep_from_nmf sigma) and candidates around the warm
      start; rtol=1e-5 / atol=1e-3 (the sums run in another order); two
      launches on the same inputs must agree bit for bit; each kernel's
      device time (torch.profiler), the wrapper's host time, its bound on
      an H100 and its share of it; then the launches, device time and host
      waits a sweep of the new paths but the row-constraints recipe and
-     ESS (torch.profiler). Last, because
+     ESS, and of a PGDS sweep at both widths (torch.profiler). Last, because
      torch.profiler slows every later launch of the process on the host.
 After each group of phases a line gives the seconds elapsed so far. The
 line before the last is the kernels' JSON record, the last line
@@ -172,12 +187,15 @@ def politics_problem():
     return Y_train, W0, V0, ep_from_nmf(Y_train, W0, V0)
 
 
-def kernel_phase(dev, Y, W0, V0, pol):
-    """Every kernel at every shape of the paths: agreement with its plain
-    version, two launches bit-identical, device and host time, bound."""
+def kernel_phase(dev, Y, W0, V0, pol, example):
+    """Every kernel at every shape of the paths, the Poisson example's
+    (``example`` = its data and NMF warm start) included: agreement with
+    its plain version, two launches bit-identical, device and host time,
+    bound."""
     from functionalmf_tpu_torch.ops import fused_ll_bench as B
     try:
-        records = B.run_cases(B.path_cases(dev, Y, W0, V0, pol))
+        records = B.run_cases(B.path_cases(dev, Y, W0, V0, pol)
+                              + B.example_cases(dev, *example))
     except AssertionError as exc:
         fail(str(exc))
     for rec in records:
@@ -228,16 +246,18 @@ def check_results(tag, res, model, nchains, nsamples):
              f"(min Mu {mu.min():.3e})")
 
 
-def politics_run(tag, argv, nchains, nsamples, Y_train):
-    """The port's politics app on the card, EP on, through its entry point;
-    returns the kernels' launches on this run and its sweeps."""
+def politics_run(tag, argv, nchains, nsamples, Y_train, pgds=False):
+    """The port's politics app on the card, EP on, through its entry point
+    (``pgds``: with its in-process PGDS arm as the warm start's target);
+    returns the kernels' launches on this run, its sweeps and the run."""
     from functionalmf_tpu_torch.apps.politics import benchmark
     from functionalmf_tpu_torch.ops import fused_ll as F
     with tempfile.TemporaryDirectory() as empty:    # the synthetic tensor
         args = benchmark.parse_args(
-            ["--no-pgds", "--device", "cuda", "--data-dir", empty,
-             "--nthin", "1", "--nsamples", str(nsamples),
-             "--nchains", str(nchains)] + argv)
+            ["--no-pgds"] * (not pgds)
+            + ["--device", "cuda", "--data-dir", empty,
+               "--nthin", "1", "--nsamples", str(nsamples),
+               "--nchains", str(nchains)] + argv)
         F.reset_launch_counts()
         out = benchmark.run(args)
     launches = dict(F.launch_counts)
@@ -277,7 +297,7 @@ def politics_run(tag, argv, nchains, nsamples, Y_train):
           f"sweeps_per_sec={WARM_SWEEPS / dt:.3f}")
     print(f"launches politics {tag}: {json.dumps(launches)} in "
           f"{out.nsweeps} sweeps")
-    return launches, out.nsweeps
+    return launches, out.nsweeps, out
 
 
 def slice_run(dev, Y, Con, W0, V0, nchains, nburn, nsamples):
@@ -1134,6 +1154,215 @@ def ess_phase(dev, nburn=100, nsamples=50):
     return model, Y
 
 
+# ----------------------------------------------------------------------
+# PGDS: the politics app's in-process arm, the sampler on the card and on
+# the CPU, the Poisson example
+# ----------------------------------------------------------------------
+PGDS_APP_SWEEPS = (60, 10)      # burn-in, draws of the politics app's run
+PGDS_TIMED_SWEEPS = (50, 50)    # fit_pgds warmed, timed (nthin=1)
+PGDS_AGREE = dict(nburn=400, nthin=1, nsamples=200, seed=0)
+# card against CPU on the recovery toy of tests/test_pgds.py: twice the
+# spread of two CPU seeds of the port at these counts (RMS over cells of
+# the posterior-mean rates' difference over the true rates' RMS, seeds 0
+# and 1, measured on the CPU; three seeds read 0.1085 to 0.1306, and at
+# 300 + 600 sweeps 0.0990 to 0.1123: the chains settle in different
+# modes, so longer runs do not shrink it)
+PGDS_SEED_SPREAD = 0.1085
+EXAMPLE_SWEEPS = (100, 1, 100)  # the Poisson example: nburn, nthin, nsamples
+# the sampler's steps, timed one by one: (method, label)
+PGDS_STEPS = (("_impute", "impute"), ("_allocate", "allocate"),
+              ("_factors", "A, B"), ("_backward", "backward pass"),
+              ("_forward", "forward pass"), ("_pi", "Pi"),
+              ("_delta", "delta"), ("_hyper", "nu, xi, beta"))
+
+
+def phase_seconds(name, t0):
+    print(f"phase seconds {name}: {time.perf_counter() - t0:.1f}")
+
+
+def check_pgds_draws(tag, Mu, W, V, U, shape):
+    """Finite draws of the expected shapes, Mu >= 0, the Dirichlet factor
+    columns summing to 1."""
+    S, (n, m, T), k = Mu.shape[0], shape, W.shape[-1]
+    want = ((S, n, m, T), (S, n, k), (S, m, k), (S, T, k))
+    if (Mu.shape, W.shape, V.shape, U.shape) != want:
+        fail(f"{tag}: PGDS draws of shapes {Mu.shape}, {W.shape}, {V.shape},"
+             f" {U.shape}; expected {want}")
+    for name, x in (("Mu", Mu), ("W", W), ("V", V), ("U", U)):
+        if not np.isfinite(x).all():
+            fail(f"{tag}: non-finite PGDS draws in {name}")
+    if Mu.min() < 0:
+        fail(f"{tag}: a PGDS rate is negative ({Mu.min():.3e})")
+    err = max(np.abs(W.sum(1) - 1).max(), np.abs(V.sum(1) - 1).max())
+    if err > 1e-4:
+        fail(f"{tag}: PGDS factor columns sum to 1 within {err:.2e} only")
+    return err
+
+
+def politics_pgds_phase(dev, pol):
+    """The politics app with its in-process PGDS arm (the default, no
+    --no-pgds) on its synthetic 19x19x228 tensor, seq + EP, then fit_pgds
+    timed warmed; returns a PGDS sampler at that width for the phase times
+    and the launch profile."""
+    from functionalmf_tpu_torch.models.pgds import PGDSSampler
+    from functionalmf_tpu_torch.pgds import fit_pgds
+    nb, ns = PGDS_APP_SWEEPS
+    _, _, out = politics_run("seq nchains=1, PGDS warm start",
+                             ["--nburn", str(nb)], 1, ns, pol[0], pgds=True)
+    Mu, (W, V, U) = out.pgds_draws
+    err = check_pgds_draws("politics PGDS", Mu, W, V, U,
+                           (NROWS, NCOLS, NDEPTH))
+    row = out.table["Schein et al (2016)"]
+    if not all(np.isfinite(v) for v in row.values()):
+        fail(f"politics PGDS: non-finite report {row}")
+    print(f"politics PGDS arm: {nb + ns} sweeps in {out.pgds_seconds:.3f}s "
+          f"(cold, Mu on the host included); factor columns sum to 1 within "
+          f"{err:.2e}; Schein et al (2016): "
+          + " ".join(f"{a}={b:.4f}" for a, b in row.items()))
+    nb, ns = PGDS_TIMED_SWEEPS
+    t0 = time.perf_counter()
+    fit_pgds(pol[0], NEMBEDS, nburn=nb, nthin=1, nsamples=ns, device=dev)
+    dt = time.perf_counter() - t0
+    print(f"fit_pgds 19x19x228 k=5 warmed: sweeps={nb + ns} seconds={dt:.3f}"
+          f" sweeps_per_sec={(nb + ns) / dt:.3f} (the draws' copies and Mu "
+          "on the host included)")
+    sampler = PGDSSampler(pol[0], NEMBEDS, device=dev)
+    sampler.run(1)
+    return sampler
+
+
+def recovery_problem():
+    """tests/test_pgds.py:test_pgds_recovers_rates's data, 8x7x20."""
+    rng = np.random.default_rng(3)
+    N, M, T, K = 8, 7, 20, 2
+    A = rng.dirichlet(np.ones(N) * 2, size=K).T
+    B = rng.dirichlet(np.ones(M) * 2, size=K).T
+    U = np.abs(np.cumsum(rng.normal(0, 1, (T, K)), axis=0)) + 5
+    Mu = np.einsum("ik,jk,tk->ijt", A, B, U) * 8
+    return rng.poisson(Mu).astype(float), Mu
+
+
+def pgds_agreement(dev):
+    """The PGDS posterior-mean rates on the card and on the CPU at a toy
+    shape, within twice the spread of two CPU seeds; then the binary mode
+    on the card."""
+    from functionalmf_tpu_torch.pgds import fit_pgds
+    Y, Mu = recovery_problem()
+    means = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        M_, _ = fit_pgds(Y, 3, device=d, **PGDS_AGREE)
+        if not np.isfinite(M_).all() or M_.min() < 0:
+            fail(f"pgds agreement on {d}: non-finite or negative rates")
+        means[str(d)] = M_.mean(0)
+        print(f"pgds agreement on {d}: "
+              f"{PGDS_AGREE['nburn'] + PGDS_AGREE['nsamples']} sweeps in "
+              f"{time.perf_counter() - t0:.3f}s")
+    scale = np.sqrt((Mu ** 2).mean())
+    rel = float(np.sqrt(np.mean((means[str(dev)] - means["cpu"]) ** 2))
+                / scale)
+    fit = float(np.sqrt(np.mean((means[str(dev)] - Mu) ** 2)) / scale)
+    limit = 2 * PGDS_SEED_SPREAD
+    print(f"agreement card vs cpu (pgds 8x7x20, K=3): rel={rel:.4f} (limit "
+          f"{limit:.4f}, twice the spread of two CPU seeds "
+          f"{PGDS_SEED_SPREAD}); card vs truth {fit:.4f}")
+    if not rel < limit:
+        fail(f"pgds: card and CPU posteriors disagree (rel={rel:.4f})")
+    rng = np.random.default_rng(5)
+    P = rng.uniform(0.05, 0.9, (6, 5, 10))
+    Yb = (rng.random(P.shape) < P).astype(float)
+    Mb, _ = fit_pgds(Yb, 2, binary=True, nburn=50, nthin=1, nsamples=30,
+                     seed=1, device=dev)
+    if not np.isfinite(Mb).all() or Mb.min() < 0:
+        fail("pgds binary mode on the card: non-finite or negative rates")
+    m = Mb.mean(0)
+    print(f"pgds binary mode on the card: 80 sweeps, rates finite; mean rate "
+          f"{m[Yb > 0].mean():.4f} at ones, {m[Yb == 0].mean():.4f} at zeros")
+
+
+def example_problem(seed=1, nembeds=3):
+    """The Poisson example's data (seed 1, the first 3x3 curves held out)
+    and its NMF warm start."""
+    from functionalmf_tpu_torch.examples import poisson_tensor_filtering as E
+    from functionalmf_tpu_torch.utils.nmf import tensor_nmf
+    rng = np.random.default_rng(seed)
+    W, V = E.create_piecewise_constant(rng)
+    Mu = np.einsum("nk,mtk->nmt", W, V)
+    Y = rng.poisson(Mu[..., None], size=Mu.shape + (1,)).astype(float)
+    Y[:3, :3] = np.nan
+    W0, V0 = tensor_nmf(Y, nembeds, rng=rng)
+    return Y[..., 0], W0, V0
+
+
+def poisson_example_phase():
+    """The Poisson example through its main on the card at k=3, seed 1 and
+    reduced counts: the 9-metric table finite, every Poisson-BTF draw
+    positive, the non-EP kernels (and not the EP ones) launched once for
+    the W update and once for each of the three seq rounds a sweep."""
+    import os
+    from functionalmf_tpu_torch.examples import poisson_tensor_filtering as E
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    nburn, nthin, nsamples = EXAMPLE_SWEEPS
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)                 # it saves data/poisson_tensor_filtering
+        try:
+            F.reset_launch_counts()
+            out = E.main(["3", "1", "--device", "cuda"], nburn=nburn,
+                         nthin=nthin, nsamples=nsamples)
+            launches = dict(F.launch_counts)
+        finally:
+            os.chdir(cwd)
+    table, res, model = out["table"], out["results"], out["model"]
+    if table.shape != (len(E.METRICS), len(E.MODEL_NAMES)) or \
+            not np.isfinite(table).all():
+        fail(f"poisson example: table {table.shape}, finite "
+             f"{np.isfinite(table).all()}")
+    mu = np.einsum("snk,smtk->snmt", res["W"], res["V"])
+    if mu.min() < -1e-5 or not np.isfinite(mu).all():
+        fail(f"poisson example: a Poisson-BTF draw is negative or not "
+             f"finite (min {mu.min():.3e})")
+    rounds = [(ph.starts, ph.size) for ph in model._phases]
+    if rounds != [([0], 8), ([8], 8), ([16], 4)]:
+        fail(f"poisson example: V rounds {rounds}, expected two seq rounds "
+             "of 8 and a tail of 4")
+    check_launches("poisson example", launches,
+                   ("fused_row_ll", "fused_col_block_ll"))
+    sweeps = nburn + nthin * nsamples
+    if (launches["fused_row_ll"], launches["fused_col_block_ll"]) != \
+            (sweeps, 3 * sweeps):
+        fail(f"poisson example: launches {launches} in {sweeps} sweeps; "
+             "expected 1 row and 3 column launches a sweep")
+    print(f"poisson example 11x12x20 k=3 seed 1 ({nburn} + {nthin} x "
+          f"{nsamples} sweeps an arm): launches {json.dumps(launches)} in "
+          f"{sweeps} Poisson-BTF sweeps (rounds {rounds}); seconds "
+          + json.dumps({k: round(v, 3) for k, v in out["seconds"].items()}))
+    for name, col in zip(out["names"], table.T):
+        print(f"poisson example {name}: " + " ".join(
+            f"{m['name']}={v:.4f}" for m, v in zip(E.METRICS, col)))
+
+
+def pgds_time_goes(tag, sampler, sweeps=5):
+    """ms a sweep of each step of the PGDS sampler, a synchronise around
+    each."""
+    totals = {}
+    with contextlib.ExitStack() as stack:
+        for name, label in PGDS_STEPS:
+            stack.enter_context(timed(sampler, name, label, totals, True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.run(sweeps)
+        torch.cuda.synchronize()
+        totals["sweep (timed)"] = time.perf_counter() - t0
+    ms = {label: 1e3 * t / sweeps for label, t in totals.items()}
+    print(f"phases {tag} (ms a sweep, {sweeps} sweeps, a synchronise around "
+          f"each): " + json.dumps({k: round(v, 3) for k, v in ms.items()}))
+    missing = {label for _, label in PGDS_STEPS} - set(ms)
+    if missing:
+        fail(f"phases {tag}: no time for {sorted(missing)}")
+    return ms
+
+
 # where a sweep's time goes. (attribute of the model, phase label):
 MODEL_PHASES = (
     ("_update_nu2", "nu2 draw"),
@@ -1236,18 +1465,25 @@ def where_time_goes(tag, model, data, expect, sweeps=10, warm=2, hook=None):
 
 
 def launch_counts_phase(tag, model, data, sweeps=3, warm=2, hook=None):
+    """A model's sweep under torch.profiler (:func:`profile_sweeps`)."""
+    run_kw = {} if hook is None else dict(traced_callback=hook)
+    return profile_sweeps(
+        tag, lambda n: run_sweeps(model, data, n, **run_kw), sweeps, warm)
+
+
+def profile_sweeps(tag, run, sweeps, warm):
     """A sweep's device kernels, device time, wall time and host-side
-    waits from torch.profiler: syncs (stream, device and event
-    synchronises), memcpy (cudaMemcpyAsync calls: the bool() and .cpu()
-    reads wait in these) and item_reads (aten::_local_scalar_dense)."""
+    waits from torch.profiler over ``run(sweeps)``, after ``run(warm)``:
+    syncs (stream, device and event synchronises), memcpy
+    (cudaMemcpyAsync calls: the bool() and .cpu() reads wait in these)
+    and item_reads (aten::_local_scalar_dense)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run_kw = {} if hook is None else dict(traced_callback=hook)
-    run_sweeps(model, data, warm, **run_kw)
+    run(warm)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_sweeps(model, data, sweeps, **run_kw)
+        run(sweeps)
         wall = time.perf_counter() - t0
     kernels = device_us = syncs = memcpy = items = 0
     for ev in prof.key_averages():
@@ -1306,8 +1542,8 @@ def main():
     stamp("the red-black recipe")
     # the politics app's default schedule first: its launches are the EP
     # kernels' record
-    l_ep, s_ep = politics_run("seq nchains=1", ["--nburn", "30"], 1, 30,
-                              pol[0])
+    l_ep, s_ep, _ = politics_run("seq nchains=1", ["--nburn", "30"], 1, 30,
+                                 pol[0])
     politics_run("redblack nchains=4",
                  ["--v-schedule", "redblack", "--nburn", "20"], 4, 20, pol[0])
     politics_run("joint nchains=1", ["--v-block-size", "0", "--nburn", "3"],
@@ -1339,6 +1575,17 @@ def main():
         resume_phase(dev, Y, Con, W0, V0, tmpdir)
     ess_model, ess_Y = ess_phase(dev)
     stamp("Row_constraints, resume and ESS")
+    t0 = time.perf_counter()
+    pgds_pol = politics_pgds_phase(dev, pol)
+    phase_seconds("politics PGDS arm and fit_pgds timed", t0)
+    t0 = time.perf_counter()
+    pgds_agreement(dev)
+    phase_seconds("PGDS card vs CPU and binary mode", t0)
+    t0 = time.perf_counter()
+    poisson_example_phase()
+    example = example_problem()
+    phase_seconds("the Poisson example", t0)
+    stamp("PGDS and the Poisson example")
     # where the time goes on the new paths, with the models of the phases
     # above (warmed); the flu-trends shape through a model of its own
     from functionalmf_tpu_torch import GaussianBayesianTensorFiltering
@@ -1366,16 +1613,31 @@ def main():
          PRIOR_PHASES | {"W update", "V update"}, None))
     for tag, model, data, expect, hook in profiled:
         where_time_goes(tag, model, data, expect, hook=hook)
+    from functionalmf_tpu_torch.models.pgds import PGDSSampler
+    pgds_ex = PGDSSampler(example[0], 3, device=dev)
+    pgds_ex.run(1)
+    t0 = time.perf_counter()
+    for tag, sampler in (("pgds 19x19x228 k=5", pgds_pol),
+                         ("pgds 11x12x20 k=3", pgds_ex)):
+        pgds_time_goes(tag, sampler)
+    phase_seconds("PGDS phase times", t0)
     stamp("the phase times")
     # last: torch.profiler, which times the kernels, slows every later
     # launch of the process on the host; the recipe once more shows how much
-    records = kernel_phase(dev, Y, W0, V0, pol)
+    records = kernel_phase(dev, Y, W0, V0, pol, example)
     stamp("the kernel phase")
     # not the last two (the row-constraints recipe is the red-black recipe
     # plus a hook of a few launches; ESS has no launch of its own to count):
     # a profiler window costs about 9 s whatever it holds
     for tag, model, data, _, hook in profiled[:-2]:
         launch_counts_phase(tag, model, data, hook=hook)
+    t0 = time.perf_counter()
+    for tag, sampler in (("pgds 19x19x228 k=5", pgds_pol),
+                         ("pgds 11x12x20 k=3", pgds_ex)):
+        profile_sweeps(tag, lambda n, s=sampler: (s.run(n),
+                                                  torch.cuda.synchronize()),
+                       sweeps=2, warm=1)
+    phase_seconds("PGDS launch profiles", t0)
     stamp("the launch profiles")
     print("red-black recipe again, after the profiled kernel phase:")
     slice_run(dev, Y, Con, W0, V0, nchains=1, nburn=20, nsamples=20)

@@ -89,6 +89,7 @@ class SweepRNG:
     INIT = 0xC0FFEE    # state initialisation draws
     SWEEP = 0x515B5    # Gibbs sweeps of run_gibbs
     HOOK = 0xCB        # run_gibbs's traced_callback, a site of its own
+    PGDS = 0x9D5       # sweeps of the PGDS sampler (models/pgds.py)
 
     def __init__(self, seed: int, device: torch.device):
         self.seed = int(seed)

@@ -4,14 +4,15 @@ benchmark.py; reference politics/benchmark.py:1-204).
 Fits the constrained Poisson BTF to the 19x19x228 G20 "Intend to
 Cooperate" monthly count tensor with 10% of nation pairs held out, and
 reports in/out-of-sample RMSE / MAE / Poisson log-likelihood against the
-empirical mean. The warm start is an NMF of the training tensor (or of a
-precomputed PGDS posterior mean, ``--pgds-mu``); the EP centres come from
-that NMF (``ep_from_nmf``). ``--nb`` also fits the NegBinom BTF arm
-(global dispersion, logit link, Mu = R P / (1 - P)). The in-process PGDS
-arm is not ported yet.
+empirical mean. By default it first fits PGDS (Schein et al. 2016,
+``functionalmf_tpu_torch.pgds.fit_pgds``, the app's sweep counts) to the
+training tensor, reports it as "Schein et al (2016)" and warm-starts the
+BTF from an NMF of its posterior mean; ``--pgds-mu`` takes a precomputed
+posterior mean instead and ``--no-pgds`` the training tensor itself. The
+EP centres come from that NMF (``ep_from_nmf``). ``--nb`` also fits the
+NegBinom BTF arm (global dispersion, logit link, Mu = R P / (1 - P)).
 
-    python -m functionalmf_tpu_torch.apps.politics.benchmark --no-pgds \\
-        --device cuda
+    python -m functionalmf_tpu_torch.apps.politics.benchmark --device cuda
 
 Data: the benchmark arrays (cooperate.npy, cooperate_train.npy,
 held_out.npy) from ``--data-dir`` when present; otherwise a synthetic
@@ -31,6 +32,7 @@ import torch
 from functionalmf_tpu_torch import (
     ConstrainedNonconjugateBayesianTensorFiltering,
     NegativeBinomialBayesianTensorFiltering, POISSON)
+from functionalmf_tpu_torch.pgds import fit_pgds
 from functionalmf_tpu_torch.utils.nmf import tensor_nmf
 
 # The Poisson cell without its y-only term, 0 on NaN (politics/
@@ -134,7 +136,8 @@ class PoliticsRun:
     """What one run of the benchmark produced: the metrics table, the
     results dict of run_gibbs, the fitted model, its warm start (W0, V0)
     and the host-clock seconds of the NMF warm start and of the Gibbs
-    sampler; with ``--nb`` the NegBinom arm's results and model too."""
+    sampler; with the in-process PGDS arm its draws (Mu, (W, V, U)) and
+    seconds; with ``--nb`` the NegBinom arm's results and model too."""
     table: dict
     results: dict
     model: ConstrainedNonconjugateBayesianTensorFiltering
@@ -142,6 +145,8 @@ class PoliticsRun:
     nmf_seconds: float
     gibbs_seconds: float
     nsweeps: int
+    pgds_draws: tuple = None
+    pgds_seconds: float = None
     nb_results: dict = None
     nb_model: NegativeBinomialBayesianTensorFiltering = None
 
@@ -149,22 +154,31 @@ class PoliticsRun:
 def run(args):
     """The benchmark for parsed ``args``: data, warm start, EP, the
     constrained Poisson BTF, the report."""
-    if not (args.no_pgds or args.pgds_mu):
-        raise NotImplementedError(
-            "the in-process PGDS arm is not ported yet (ROADMAP.md, Queue 1 "
-            "item 13): pass --no-pgds or --pgds-mu")
     rng = np.random.default_rng(args.seed)
     Y, Y_train, to_hold = load_data(args.data_dir, rng)
     nrows, ncols, ndepth = Y.shape
     nembeds = args.nembeds
 
-    if args.pgds_mu:
+    # the PGDS baseline (benchmark.py:74-81), on the BTF's device
+    pgds_draws = pgds_seconds = None
+    if args.no_pgds:
+        nmf_target = Y_train
+    elif args.pgds_mu:
         nmf_target = np.load(args.pgds_mu)
         if nmf_target.shape != Y.shape:
             raise ValueError(f"--pgds-mu has shape {nmf_target.shape}, "
                              f"expected {Y.shape}")
     else:
-        nmf_target = Y_train
+        t0 = time.perf_counter()
+        pgds_draws = fit_pgds(Y_train, nembeds, binary=False, nthreads=1,
+                              time_mode=2, nburn=args.nburn,
+                              nthin=args.nthin, nsamples=args.nsamples,
+                              verbose=0, device=args.device)
+        pgds_seconds = time.perf_counter() - t0
+        print("PGDS: {} sweeps in {:.3f} s".format(
+            max(args.nburn, 1) + max(args.nthin, 1) * args.nsamples,
+            pgds_seconds))
+        nmf_target = pgds_draws[0].mean(axis=0)
 
     # constrained Poisson BTF with positivity constraints (benchmark.py:84-97)
     C_zero = np.concatenate([np.eye(ndepth), np.zeros((ndepth, 1))], axis=1)
@@ -232,6 +246,8 @@ def run(args):
 
     Mu_emp = (np.ones_like(Y_train) * np.nanmean(Y_train, axis=-1)[..., None])[None]
     report("Empirical mean", Mu_emp)
+    if pgds_draws is not None:
+        report("Schein et al (2016)", pgds_draws[0])
     report("BTF", Mu_hat)
 
     nb_results = nb_model = None
@@ -268,6 +284,7 @@ def run(args):
     return PoliticsRun(table=table, results=results, model=model,
                        warm_start=(W0, V0), nmf_seconds=nmf_seconds,
                        gibbs_seconds=gibbs_seconds, nsweeps=nsweeps,
+                       pgds_draws=pgds_draws, pgds_seconds=pgds_seconds,
                        nb_results=nb_results, nb_model=nb_model)
 
 

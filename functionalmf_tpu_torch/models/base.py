@@ -226,6 +226,28 @@ class BayesianTensorFiltering:
                       self.ndepth).transpose(-1, -2)
         return torch.clamp(V, -10, 10).contiguous()
 
+    # re-initialisation after a warm start is assigned (the Poisson
+    # example's setup_sampler), each from the next init generator
+    def _init_sigma2(self):
+        self._state["sigma2"] = self._init_sigma2_val(self._next_init_gen())
+
+    def _init_lam2(self):
+        lam2, lam2_a = self._init_lam2_val(self._next_init_gen())
+        self._state["lam2"], self._state["lam2_a"] = lam2, lam2_a
+
+    def _init_Tau2(self):
+        t2, c, b, a = self._init_tau2_val(self._next_init_gen())
+        self._state["Tau2"], self._state["Tau2_c"] = t2, c
+        self._state["Tau2_b"], self._state["Tau2_a"] = b, a
+
+    def _init_W(self):
+        self._state["W"] = self._init_W_val(self._next_init_gen(),
+                                            self._state["sigma2"])
+
+    def _init_V(self):
+        self._state["V"] = self._init_V_val(
+            self._next_init_gen(), self._state["lam2"], self._state["Tau2"])
+
     # ------------------------------------------------------------------
     # state access
     # ------------------------------------------------------------------

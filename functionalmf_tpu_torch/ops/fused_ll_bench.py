@@ -235,6 +235,41 @@ def _path_cases(dev, Y, W0, V0, pol, wide_T, seed, G):
     return cases
 
 
+def example_cases(dev, Y, W0, V0, block=8, seed=7):
+    """The Poisson example's shapes (examples/poisson_tensor_filtering.py:
+    11x12x20, k=3, the seq schedule in blocks of ``block``, no EP), 101
+    candidates, on its data ``Y`` (n, m, T) and NMF warm start: the W
+    update (R=n, C=m T), a seq round (P=m, Tb=block; T // block of them a
+    sweep) and the tail (P=m, Tb=T % block)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                  device=dev)
+    i32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                                    device=dev)
+    n, m, T = Y.shape
+    k, G, C = W0.shape[1], 101, m * T
+    y, W, V = t(Y), t(W0), t(V0)
+    jitter = lambda shape: torch.rand(shape, generator=gen,
+                                      device=dev) * 0.2 + 0.9
+    cw = torch.rand((n, G, k), generator=gen, device=dev) * 0.4 + 0.8
+    cw = cw * (torch.arange(k, device=dev)[None]
+               <= torch.arange(n, device=dev)[:, None])[:, None, :]
+    cases = [Case("fused_row_ll", f"example R={n}, C={C}", (
+        cw.contiguous(), (V.reshape(1, C, k) * jitter((1, C, k))).contiguous(),
+        y.reshape(n, C).contiguous(), i32(np.zeros(n)), i32(np.arange(n))))]
+    nb, rem = divmod(T, block)
+    for label, t0, Tb in (("seq round", (nb - 1) * block, block),
+                          ("tail", nb * block, rem)):
+        c3 = torch.rand((m, G, Tb, k), generator=gen, device=dev) * 0.4 + 0.8
+        cases.append(Case("fused_col_block_ll",
+                          f"example {label}: P={m}, Tb={Tb}",
+                          (c3, (W[None] * jitter((1, n, k))).contiguous(), y,
+                           i32(np.zeros(m)), i32(np.arange(m)),
+                           i32(np.full(m, t0)))))
+    return cases
+
+
 def device_us(launch, pattern="ll_kernel", reps=REPS):
     """Device time per launch of the kernels whose name holds ``pattern``:
     torch.profiler over ``reps`` launches, or CUDA events around ``reps``

@@ -7,12 +7,19 @@ acceptance masks. A round accepts with probability at least 0.95, so a
 lane misses all ``rounds=6`` proposals with probability below 2e-8; such
 a lane takes the distribution's mean, a bias far below Monte Carlo noise.
 It is the gamma draw of the Polya-Gamma augmentation (ops/polyagamma.py).
+
+``log_gamma`` and ``dirichlet`` serve the PGDS sampler (models/pgds.py),
+whose Dirichlet concentrations go down to about 1e-6. There a linear draw
+underflows (``torch._standard_gamma(1e-6)`` is the smallest normal
+float32), and a Dirichlet whose components all underflow is 0/0. As in
+``jax.random.dirichlet``, the draw is kept in log space and normalised
+with a softmax.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gamma_mt", "draw_gamma_mt_noise"]
+__all__ = ["gamma_mt", "draw_gamma_mt_noise", "log_gamma", "dirichlet"]
 
 
 def draw_gamma_mt_noise(gen, shape, rounds: int = 6, device=None,
@@ -65,3 +72,21 @@ def gamma_mt(gen, a, shape=None, rounds: int = 6, dtype=torch.float32,
     boost = torch.exp(torch.log(ub) / a.clamp(min=1e-12))
     out = torch.where(small, out * boost, out)
     return torch.where(a > 0, out, 0.0)
+
+
+def log_gamma(gen, a):
+    """log of a Gamma(a, 1) draw, elementwise, for a > 0: log g(a) for
+    a >= 1, log g(a + 1) + log(U) / a below (the boost in log space, which
+    does not underflow at small a). PyTorch's gamma sampler, then one
+    uniform a lane, both from ``gen``."""
+    small = a < 1.0
+    g = torch._standard_gamma(torch.where(small, a + 1.0, a), generator=gen)
+    u = torch.rand(a.shape, generator=gen, dtype=a.dtype, device=a.device)
+    u = u.clamp_(min=torch.finfo(a.dtype).tiny)
+    return torch.log(g) + torch.where(small, torch.log(u) / a, 0.0)
+
+
+def dirichlet(gen, alpha):
+    """Dirichlet draws over the last axis of ``alpha`` (> 0): the softmax
+    of independent log-gamma draws (``jax.random.dirichlet``)."""
+    return torch.softmax(log_gamma(gen, alpha), dim=-1)

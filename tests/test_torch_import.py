@@ -21,6 +21,7 @@ MODULES = [
     "functionalmf_tpu_torch.examples.binomial_tensor_filtering",
     "functionalmf_tpu_torch.examples.gaussian_tensor_filtering",
     "functionalmf_tpu_torch.examples.negbinom_tensor_filtering",
+    "functionalmf_tpu_torch.examples.poisson_tensor_filtering",
     "functionalmf_tpu_torch.interop",
     "functionalmf_tpu_torch.models.base",
     "functionalmf_tpu_torch.models.binomial",
@@ -28,14 +29,17 @@ MODULES = [
     "functionalmf_tpu_torch.models.gaussian",
     "functionalmf_tpu_torch.models.negbinom",
     "functionalmf_tpu_torch.models.nonconjugate",
+    "functionalmf_tpu_torch.models.pgds",
     "functionalmf_tpu_torch.ops._build",
     "functionalmf_tpu_torch.ops.banded",
+    "functionalmf_tpu_torch.ops.crt",
     "functionalmf_tpu_torch.ops.fused_ll",
     "functionalmf_tpu_torch.ops.fused_ll_bench",
     "functionalmf_tpu_torch.ops.gamma",
     "functionalmf_tpu_torch.ops.mvn",
     "functionalmf_tpu_torch.ops.penalty",
     "functionalmf_tpu_torch.ops.polyagamma",
+    "functionalmf_tpu_torch.pgds",
     "functionalmf_tpu_torch.samplers.conjugate",
     "functionalmf_tpu_torch.samplers.ess",
     "functionalmf_tpu_torch.samplers.gass",

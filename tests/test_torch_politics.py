@@ -162,9 +162,41 @@ def test_app_pgds_mu_warm_start(tmp_path):
     assert np.isfinite(table["BTF"]["rmse_in"])
 
 
-@pytest.mark.parametrize("argv, match", [
-    ([], "PGDS"),
-])
-def test_out_of_slice_arms_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tbench.main(["--device", "cpu"] + argv)
+def test_app_pgds_arm_runs_on_cpu(tmp_path, monkeypatch):
+    """Without --no-pgds the app fits PGDS in process at its own sweep
+    counts (and, as the JAX app, at fit_pgds's default seed, not the
+    app's), reports it as "Schein et al (2016)" and takes the NMF warm
+    start from its posterior mean."""
+    Y = _write_tensors(str(tmp_path))
+    targets, pgds_kw = [], []
+    nmf, pgds = tbench.tensor_nmf, tbench.fit_pgds
+
+    def spy(target, *args, **kwargs):
+        targets.append(target)
+        return nmf(target, *args, **kwargs)
+
+    def pgds_spy(*args, **kwargs):
+        pgds_kw.append(kwargs)
+        return pgds(*args, **kwargs)
+    monkeypatch.setattr(tbench, "tensor_nmf", spy)
+    monkeypatch.setattr(tbench, "fit_pgds", pgds_spy)
+    out = tbench.run(tbench.parse_args(
+        ["--data-dir", str(tmp_path), "--device", "cpu", "--no-ep",
+         "--nembeds", "2", "--nburn", "10", "--nthin", "2",
+         "--nsamples", "6"]))
+    assert set(out.table) == {"Empirical mean", "Schein et al (2016)",
+                              "BTF"}
+    row = out.table["Schein et al (2016)"]
+    assert set(row) == {"rmse_in", "rmse_out", "mae_in", "mae_out", "ll_in",
+                        "ll_out"}
+    assert all(np.isfinite(v) for v in row.values())
+    Mu, (W, V, U) = out.pgds_draws
+    assert Mu.shape == (6,) + Y.shape and (Mu >= 0).all()
+    assert W.shape == (6, 6, 2) and U.shape == (6, 16, 2)
+    np.testing.assert_allclose(W.sum(1), 1.0, atol=1e-4)
+    assert out.pgds_seconds > 0
+    assert len(targets) == 1
+    np.testing.assert_array_equal(targets[0], Mu.mean(axis=0))
+    (kw,) = pgds_kw
+    assert (kw["nburn"], kw["nthin"], kw["nsamples"]) == (10, 2, 6)
+    assert "seed" not in kw and kw["device"] == "cpu"
