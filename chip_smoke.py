@@ -5,13 +5,15 @@ the conjugate and Polya-Gamma families (the flu-trends app, Gaussian and
 Binomial models at the GDELT width), the black-box-likelihood paths (the
 dose-response app with its U hook in both flavours, Row_constraints and a
 device hook on the Poisson recipe, checkpoint/resume, ESS), PGDS and the
-Poisson example.
+Poisson example, and BNP-CovReg (the flu-trends app's --bnp arm).
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero before the last line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels of functionalmf_tpu_torch/csrc from source;
+  2. build the CUDA kernels of functionalmf_tpu_torch/csrc from source, and
+     the native host library (native/fmf_host.cpp, host c++; the NMF's
+     NNLS and PAV) into functionalmf_tpu_torch/_build/, timed;
   3. red-black slice: the bench.py data (seed 42) and red-black recipe on
      the card, run_gibbs at nchains=1 and nchains=4; both non-EP kernels
      must have launched in each run, every draw must be finite and
@@ -80,12 +82,24 @@ Phases (any failure raises and exits non-zero before the last line):
      k=3, seed 1, 100 + 100 sweeps an arm: the 9-metric table finite,
      every Poisson-BTF draw positive, its V rounds two seq rounds of 8 and
      a tail of 4, exactly one row and three column launches of the non-EP
-     kernels a sweep and none of the EP ones; each of these phases prints
-     its seconds;
+     kernels a sweep and none of the EP ones; BNP-CovReg: the flu-trends
+     app with --bnp on its synthetic 50x1x370 tensor at L=10, k=20, 200
+     iterations (the app's 10000 cut; 20 stored), beside 10 + 10 BTF
+     sweeps at k=5: every stored mu and var_diag finite, var_diag > 0,
+     shapes (20, 50, 370), no Cholesky failure (fit_bnp_covreg raises on
+     one), in-sample RMSE of the BNP mean below the data's standard
+     deviation, coverage finite; tests/test_bnp_covreg.py's recovery
+     problem (8x60, L=4, k=4, c=30, 600 iterations, burn-in 200, seed 1)
+     on the card: err_obs < 0.5 sd, err_miss < 2 sd, median var_diag in
+     (0.25 sd^2, 10 sd^2); the same on the CPU at seeds 1 and 2, the card's
+     posterior mean of mu within twice their spread; 4000 batched GP
+     conditional draws on the card at N=25 against the dense float64
+     moments; each of these phases prints its seconds;
  10. where the time goes: ms a sweep of every phase of the new paths
      (nu2 or Polya-Gamma draw, R moves, priors, W update, V update split
      into band assembly, equilibrate + retile, factor scan, solve scans;
-     the PGDS sampler's eight steps at 19x19x228, K=5 and 11x12x20, K=3),
+     the PGDS sampler's eight steps at 19x19x228, K=5 and 11x12x20, K=3;
+     BNP-CovReg's six steps at 50x370, L=10, k=20, and its untimed rate),
      each with a synchronise around it;
  11. kernels: each of the four kernels (row and column-block, each with and
      without EP) against its plain PyTorch version on the card, at every
@@ -103,7 +117,8 @@ Phases (any failure raises and exits non-zero before the last line):
      device time (torch.profiler), the wrapper's host time, its bound on
      an H100 and its share of it; then the launches, device time and host
      waits a sweep of the new paths but the row-constraints recipe and
-     ESS, and of a PGDS sweep at both widths (torch.profiler). Last, because
+     ESS, of a PGDS sweep at both widths and of a BNP-CovReg iteration at
+     flu width (torch.profiler). Last, because
      torch.profiler slows every later launch of the process on the host.
 After each group of phases a line gives the seconds elapsed so far. The
 line before the last is the kernels' JSON record, the last line
@@ -886,8 +901,8 @@ def doseresponse_phase(dev):
     print(f"doseresponse device hook: {n}x{m}x{T}x{r}, p={p}, k={k}; "
           f"sweeps={out['nsweeps']} seconds={out['gibbs_seconds']:.3f} "
           f"sweeps_per_sec={out['nsweeps'] / out['gibbs_seconds']:.3f} "
-          f"(cold); peak device memory {peak:.3f} GiB; set-up (3 NMF fits, "
-          f"EP) {out['nmf_seconds']:.1f}s; "
+          f"(cold); peak device memory {peak:.3f} GiB; set-up (3 NMF fits "
+          f"with the native NNLS, EP) {out['nmf_seconds']:.1f}s; "
           f"in-sample MAE posterior mean {rep['Posterior mean']:.5f}, "
           f"monotone NMF {rep['Monotone NMF']:.5f}, NMF {rep['NMF']:.5f}")
 
@@ -1363,6 +1378,206 @@ def pgds_time_goes(tag, sampler, sweeps=5):
     return ms
 
 
+# ----------------------------------------------------------------------
+# BNP-CovReg (apps/flutrends/bnp_covreg.py)
+# ----------------------------------------------------------------------
+# the --bnp arm at full flu width (p=50, N=370, L=10, k=20): only the
+# iterations are cut, from the app's 10000 (stored every 10th)
+BNP_NITER = 200
+BNP_BTF_SWEEPS = 10            # the BTF arm beside it: burn-in = draws
+# tests/test_bnp_covreg.py:66-91's recovery problem
+BNP_TOY = dict(L=4, k=4, niter=600, store_every=10, nburn=200, c=30.0,
+               chunk=50)
+BNP_TOY_SD = 0.3
+BNP_STEPS = (("_sample_invSig", "invSig"), ("_sample_hypers", "hypers"),
+             ("_sample_theta", "theta"), ("_sample_psi", "psi"),
+             ("_sample_xi", "xi"), ("_sample_zeta", "zeta"))
+
+
+def bnp_app_phase():
+    """The flu-trends app with --bnp on the card, on its synthetic
+    50x1x370 tensor, beside a short BTF arm at k=5: finite draws of the
+    expected shapes, var_diag > 0, in-sample RMSE of the BNP mean below the
+    data's standard deviation, coverage finite. fit_bnp_covreg raises if
+    a Cholesky factorisation failed (its count is read every chunk)."""
+    from functionalmf_tpu_torch.apps.flutrends import benchmark
+    n = BNP_BTF_SWEEPS
+    with tempfile.TemporaryDirectory() as empty:      # the synthetic tensor
+        args = benchmark.parse_args(
+            ["--device", "cuda", "--data-dir", empty, "--nembeds", "5",
+             "--nburn", str(n), "--nthin", "1", "--nsamples", str(n),
+             "--bnp", "--bnp-niter", str(BNP_NITER)])
+        t0 = time.perf_counter()
+        table, fits = benchmark.run(args)
+        dt = time.perf_counter() - t0
+        Y = benchmark.load_data(empty, np.random.default_rng(args.seed))[0]
+    out, row = fits["bnp_covreg"], table["bnp_covreg"]
+    S = BNP_NITER // 10
+    for name in ("mu", "var_diag"):
+        if out[name].shape != (S, 50, 370):
+            fail(f"bnp app: {name} of shape {out[name].shape}")
+        if not np.isfinite(out[name]).all():
+            fail(f"bnp app: non-finite {name}")
+    if not out["var_diag"].min() > 0:
+        fail(f"bnp app: var_diag min {out['var_diag'].min():.3e}")
+    if out["state"]["zeta"].device.type != "cuda":
+        fail("bnp app: the sampler did not run on the card")
+    if not all(np.isfinite(v) for v in row.values()):
+        fail(f"bnp app: non-finite report {row}")
+    if not row["rmse_in"] < Y.std():
+        fail(f"bnp app: in-sample RMSE {row['rmse_in']:.4f} is not below "
+             f"the data's standard deviation {Y.std():.4f}")
+    print(f"bnp app 50x1x370, L=10, k=20: {BNP_NITER} iterations (the "
+          f"app's 10000 cut), {S} stored; app seconds {dt:.1f} (the BTF "
+          f"arm's {2 * n} sweeps and the data included); Cholesky failures "
+          f"0; Fox and Dunson (2015): "
+          + " ".join(f"{a}={b:.4f}" for a, b in row.items())
+          + f" (data sd {Y.std():.4f}); BTF k=5 rmse_in="
+          f"{table[5]['rmse_in']:.4f}")
+
+
+def bnp_toy_problem(seed=42, p=8, n=60):
+    """tests/test_bnp_covreg.py:66-91's data (its rng fixture: seed 42)."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 1, n)
+    basis = np.stack([np.sin(2 * np.pi * x), np.cos(3 * np.pi * x)])
+    mu_true = rng.normal(size=(p, 2)) @ basis
+    y = mu_true + rng.normal(0, BNP_TOY_SD, size=(p, n))
+    inds = np.ones((p, n), bool)
+    inds[0, 10:25] = False
+    inds[3, 40:55] = False
+    return np.where(inds, y, np.nan), inds, mu_true
+
+
+def bnp_recovery_and_agreement(dev):
+    """The recovery problem on the card (seed 1): err_obs < 0.5 sd,
+    err_miss < 2 sd, median var_diag in (0.25 sd^2, 10 sd^2); then on the
+    CPU at seeds 1 and 2: the card's posterior mean of mu within twice the
+    CPU seeds' spread (RMS over the cells)."""
+    from functionalmf_tpu_torch.apps.flutrends.bnp_covreg import (
+        fit_bnp_covreg)
+    y, inds, mu_true = bnp_toy_problem()
+    sd, means = BNP_TOY_SD, {}
+    for d, seed in ((dev, 1), ("cpu", 1), ("cpu", 2)):
+        t0 = time.perf_counter()
+        out = fit_bnp_covreg(y, seed=seed, device=d, **BNP_TOY)
+        dt = time.perf_counter() - t0
+        means[(str(d), seed)] = out["mu"].mean(0)
+        print(f"bnp toy 8x60 on {d}, seed {seed}: {BNP_TOY['niter']} "
+              f"iterations in {dt:.3f}s ({BNP_TOY['niter'] / dt:.2f}/s)")
+        if d == dev:
+            mu = means[(str(d), seed)]
+            err_obs = np.sqrt(np.mean((mu - mu_true)[inds] ** 2))
+            err_miss = np.sqrt(np.mean((mu - mu_true)[~inds] ** 2))
+            med = float(np.median(out["var_diag"].mean(0)))
+            print(f"bnp recovery on the card: err_obs={err_obs:.4f} (< "
+                  f"{0.5 * sd}), err_miss={err_miss:.4f} (< {2 * sd}), "
+                  f"median var_diag={med:.4f} (in ({0.25 * sd ** 2:.4f}, "
+                  f"{10 * sd ** 2:.4f}))")
+            if not (err_obs < 0.5 * sd and err_miss < 2 * sd
+                    and 0.25 * sd ** 2 < med < 10 * sd ** 2):
+                fail("bnp recovery: the posterior misses the truth")
+    card = means[(str(dev), 1)]
+    spread = float(np.sqrt(np.mean((means[("cpu", 1)]
+                                    - means[("cpu", 2)]) ** 2)))
+    rel = float(np.sqrt(np.mean((card - means[("cpu", 1)]) ** 2)))
+    print(f"agreement card vs cpu (bnp 8x60, seed 1): rms {rel:.4f} (limit "
+          f"{2 * spread:.4f}, twice the spread of CPU seeds 1 and 2)")
+    if not rel < 2 * spread:
+        fail(f"bnp: card and CPU posteriors disagree ({rel:.4f})")
+
+
+def bnp_matheron_moments(dev):
+    """4000 batched GP conditional draws on the card at N=25 against the
+    dense float64 moments (tests/test_bnp_covreg.py:45-63): means within
+    5 standard errors + 1e-4, variances within 25% + 1e-5."""
+    from functionalmf_tpu_torch.apps.flutrends.bnp_covreg import (
+        _sample_gp_conditional, se_kernel)
+    rng = np.random.default_rng(42)
+    n, S = 25, 4000
+    K = se_kernel(n, c=30.0, d=1.0, r=1e-4)
+    A = np.abs(rng.normal(size=n)) + 0.5
+    h = rng.normal(size=n)
+    Sig = np.linalg.inv(np.linalg.inv(K) + np.diag(A))
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fails = torch.zeros((), dtype=torch.int64, device=dev)
+    draws = _sample_gp_conditional(
+        gen, t(A).expand(S, n), t(h).expand(S, n), t(K),
+        t(np.linalg.cholesky(K)), fails=fails).double().cpu().numpy()
+    z = np.abs(draws.mean(0) - Sig @ h) / np.sqrt(np.diag(Sig) / S)
+    vrel = np.abs(draws.var(0) / np.diag(Sig) - 1)
+    print(f"bnp Matheron draw on the card (N=25, {S} draws): largest mean "
+          f"error {z.max():.2f} standard errors, largest variance error "
+          f"{vrel.max():.4f}, Cholesky failures {int(fails)}")
+    if int(fails) or not (np.all(np.abs(draws.mean(0) - Sig @ h)
+                                 < 5 * np.sqrt(np.diag(Sig) / S) + 1e-4)
+                          and np.all(np.abs(draws.var(0) - np.diag(Sig))
+                                     <= 0.25 * np.diag(Sig) + 1e-5)):
+        fail("bnp Matheron draw: moments off on the card")
+
+
+class BNPChain:
+    """The BNP sampler at flu width on the card, an iteration at a time,
+    for the phase times and the launch profile."""
+
+    def __init__(self, dev, Y):
+        from functionalmf_tpu_torch._runtime import SweepRNG
+        from functionalmf_tpu_torch.apps.flutrends import bnp_covreg as B
+        self.B, self.L, self.k = B, 10, 20
+        self.y, self.inds, self.K, self.cholK = B._prepare(
+            Y[:, 0, :], None, 100.0, 1.0, 1e-5, dev)
+        self.rng = SweepRNG(0, dev)
+        self.fails = torch.zeros((), dtype=torch.int64, device=dev)
+        self.hp = dict(a_sig=1.0, b_sig=0.1, a_phi=1.5, b_phi=1.5, a1=10.0,
+                       a2=10.0)
+        p, N = self.y.shape
+        self.state = B._init_state(self.rng.at(SweepRNG.BNP, 0), p, N,
+                                   self.L, self.k, 1.0, 0.1, 1.5, 1.5, 10.0,
+                                   10.0, self.y)
+        self.it = 0
+        self.run(2)
+
+    def run(self, n):
+        from functionalmf_tpu_torch._runtime import SweepRNG
+        for _ in range(n):
+            self.it += 1
+            self.state = self.B._gibbs_iter(
+                self.rng.at(SweepRNG.BNP, self.it), self.state, self.y,
+                self.inds, self.K, self.cholK, self.L, self.k, self.hp,
+                psi_iters=5, fails=self.fails)
+        torch.cuda.synchronize()
+
+
+def bnp_time_goes(chain, iters=5):
+    """ms an iteration of each of the six steps, a synchronise around
+    each; the Cholesky failure count of the chain so far must be 0."""
+    totals = {}
+    with contextlib.ExitStack() as stack:
+        for name, label in BNP_STEPS:
+            stack.enter_context(timed(chain.B, name, label, totals, False))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain.run(iters)
+        totals["iteration (timed)"] = time.perf_counter() - t0
+    ms = {label: 1e3 * t / iters for label, t in totals.items()}
+    print(f"phases bnp 50x370 L=10 k=20 (ms an iteration, {iters} "
+          f"iterations, a synchronise around each): "
+          + json.dumps({k: round(v, 3) for k, v in ms.items()}))
+    missing = {label for _, label in BNP_STEPS} - set(ms)
+    if missing:
+        fail(f"phases bnp: no time for {sorted(missing)}")
+    t0 = time.perf_counter()
+    chain.run(2 * iters)
+    dt = time.perf_counter() - t0
+    print(f"bnp 50x370 untimed: {2 * iters} iterations in {dt:.3f}s, "
+          f"iterations_per_sec={2 * iters / dt:.3f}")
+    if int(chain.fails):
+        fail(f"bnp: {int(chain.fails)} Cholesky factorisations failed")
+
+
 # where a sweep's time goes. (attribute of the model, phase label):
 MODEL_PHASES = (
     ("_update_nu2", "nu2 draw"),
@@ -1531,6 +1746,11 @@ def main():
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
     _build.load_library()
+    from functionalmf_tpu_torch.utils import native
+    t0 = time.perf_counter()
+    path = native.build()
+    print(f"native build: {path.name} from native/fmf_host.cpp (host c++) in "
+          f"{time.perf_counter() - t0:.1f}s")
 
     Y, Con, W0, V0, _ = bench_data()
     pol = politics_problem()
@@ -1586,6 +1806,16 @@ def main():
     example = example_problem()
     phase_seconds("the Poisson example", t0)
     stamp("PGDS and the Poisson example")
+    t0 = time.perf_counter()
+    bnp_app_phase()
+    phase_seconds("BNP-CovReg through the flu-trends app", t0)
+    t0 = time.perf_counter()
+    bnp_recovery_and_agreement(dev)
+    phase_seconds("BNP recovery and card vs CPU", t0)
+    t0 = time.perf_counter()
+    bnp_matheron_moments(dev)
+    phase_seconds("BNP Matheron moments", t0)
+    stamp("BNP-CovReg")
     # where the time goes on the new paths, with the models of the phases
     # above (warmed); the flu-trends shape through a model of its own
     from functionalmf_tpu_torch import GaussianBayesianTensorFiltering
@@ -1621,6 +1851,13 @@ def main():
                          ("pgds 11x12x20 k=3", pgds_ex)):
         pgds_time_goes(tag, sampler)
     phase_seconds("PGDS phase times", t0)
+    t0 = time.perf_counter()
+    from functionalmf_tpu_torch.apps.flutrends import benchmark as flu
+    with tempfile.TemporaryDirectory() as empty:
+        flu_train = flu.load_data(empty, np.random.default_rng(42))[1]
+    bnp_chain = BNPChain(dev, flu_train)
+    bnp_time_goes(bnp_chain)
+    phase_seconds("BNP phase times", t0)
     stamp("the phase times")
     # last: torch.profiler, which times the kernels, slows every later
     # launch of the process on the host; the recipe once more shows how much
@@ -1638,6 +1875,10 @@ def main():
                                                   torch.cuda.synchronize()),
                        sweeps=2, warm=1)
     phase_seconds("PGDS launch profiles", t0)
+    t0 = time.perf_counter()
+    profile_sweeps("bnp 50x370 L=10 k=20 (a sweep: an iteration)",
+                   bnp_chain.run, sweeps=2, warm=1)
+    phase_seconds("BNP launch profile", t0)
     stamp("the launch profiles")
     print("red-black recipe again, after the profiled kernel phase:")
     slice_run(dev, Y, Con, W0, V0, nchains=1, nburn=20, nsamples=20)

@@ -90,6 +90,7 @@ class SweepRNG:
     SWEEP = 0x515B5    # Gibbs sweeps of run_gibbs
     HOOK = 0xCB        # run_gibbs's traced_callback, a site of its own
     PGDS = 0x9D5       # sweeps of the PGDS sampler (models/pgds.py)
+    BNP = 0xB4C        # BNP-CovReg: its prior draw (0), then iterations
 
     def __init__(self, seed: int, device: torch.device):
         self.seed = int(seed)

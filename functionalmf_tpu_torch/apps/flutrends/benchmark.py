@@ -8,16 +8,20 @@ coverage of the 95% posterior predictive bands.
     python -m functionalmf_tpu_torch.apps.flutrends.benchmark --device cuda
 
 Data: ``flu_US_states.mat``, ``flu_US_states_train.mat`` and
-``held_out_years.npy`` from ``--data-dir`` when present; otherwise a
+``held_out_years.npy`` from ``--data-dir`` when present; else the raw
+``flu_US.mat`` there, prepared by ``create_datasets.create``; otherwise a
 synthetic tensor of the same form (50 x 1 x 370), so the pipeline runs end
-to end. The BNP-CovReg comparison arm (``--bnp``) is not ported yet; its
-precomputed means are read from ``flu-states/bnpcovreg_mu_mean.csv`` under
-``--data-dir`` when that file is there.
+to end. ``--bnp`` fits the BNP-CovReg comparison arm (Fox & Dunson 2015,
+``bnp_covreg.fit_bnp_covreg``) on ``--device`` and reports its RMSE, MAE
+and band coverage; without it, the arm's precomputed means are read from
+``flu-states/bnpcovreg_mu_mean.csv`` under ``--data-dir`` when that file
+is there.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 
 import numpy as np
 
@@ -38,6 +42,11 @@ def predictive_bands(Mu_hat, nu2s, rng, nsim=20, lo=2.5, hi=97.5):
             np.percentile(draws, hi, axis=0))
 
 
+def coverage(Y, lo, hi, sel):
+    """Percent of the cells ``sel`` of Y inside their band [lo, hi]."""
+    return 100 - ((Y[sel] < lo[sel]) | (Y[sel] > hi[sel])).mean() * 100
+
+
 def load_data(data_dir, rng):
     pre = os.path.join(data_dir, "flu_US_states.mat")
     if os.path.exists(pre):
@@ -47,6 +56,13 @@ def load_data(data_dir, rng):
             data_dir, "flu_US_states_train.mat"))["data"].T[:, None]
         to_hold = np.load(os.path.join(data_dir, "held_out_years.npy"))
         return np.log(Y), np.log(Yt), to_hold
+    raw = os.path.join(data_dir, "flu_US.mat")
+    if os.path.exists(raw):
+        from functionalmf_tpu_torch.apps.flutrends.create_datasets import (
+            create)
+        with tempfile.TemporaryDirectory() as tmp:
+            data, train, to_hold = create(raw, tmp)
+        return np.log(data.T[:, None]), np.log(train.T[:, None]), to_hold
     print("flu data not found in {}; synthesizing".format(data_dir))
     n, T = 50, 370
     base = (np.sin(np.linspace(0, 20, T))[None]
@@ -78,18 +94,23 @@ def parse_args(argv=None):
                              "state")
     parser.add_argument("--outdir", default=None)
     parser.add_argument("--bnp", action="store_true",
-                        help="fit the BNP-CovReg baseline (not ported yet)")
+                        help="fit the BNP-CovReg baseline (Fox & Dunson "
+                             "2015) on --device instead of reading "
+                             "precomputed MATLAB CSVs")
+    parser.add_argument("--bnp-niter", type=int, default=10000,
+                        help="BNP-CovReg Gibbs iterations "
+                             "(runstuff_varinds_flu_states.m:98)")
+    parser.add_argument("--bnp-burn", type=int, default=0,
+                        help="BNP-CovReg burn-in (the reference runner "
+                             "stores from iteration 1)")
     return parser.parse_args(argv)
 
 
 def run(args):
     """The benchmark for parsed ``args``. Returns (table, fits): the
     metrics per nembeds and, per nembeds, the results dict of run_gibbs
-    with the fitted model."""
-    if args.bnp:
-        raise NotImplementedError(
-            "the BNP-CovReg arm (--bnp, apps/flutrends/bnp_covreg.py) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 14)")
+    with the fitted model; with ``--bnp`` also fits["bnp_covreg"], the
+    return dict of ``fit_bnp_covreg``."""
     rng = np.random.default_rng(args.seed)
     Y, Y_train, to_hold = load_data(args.data_dir, rng)
     nrows, ncols, ndepth = Y.shape
@@ -117,11 +138,8 @@ def run(args):
         # row mode: (S, nrows, 1, 1) broadcasts per state
         Y_lower, Y_upper = predictive_bands(Mu_hat, nu2s, rng)
 
-        def outside(sel):
-            return ((Y[sel] < Y_lower[sel]) | (Y[sel] > Y_upper[sel])).mean()
-
-        cov_in = 100 - outside(is_in_sample) * 100
-        cov_out = 100 - outside(is_held_out) * 100
+        cov_in = coverage(Y, Y_lower, Y_upper, is_in_sample)
+        cov_out = coverage(Y, Y_lower, Y_upper, is_held_out)
         r_in = np.sqrt(np.mean((Y[is_in_sample] - Mu_mean[is_in_sample]) ** 2))
         r_out = np.sqrt(np.mean((Y[is_held_out] - Mu_mean[is_held_out]) ** 2))
         m_in = np.mean(np.abs(Y[is_in_sample] - Mu_mean[is_in_sample]))
@@ -145,11 +163,39 @@ def run(args):
                     args.outdir, "btf{}_{}.csv".format(nembeds, name)),
                     arr[:, 0], delimiter=",")
 
-    # Fox & Dunson comparison arm from precomputed means (reference
-    # flutrends/benchmark.py:146-152)
-    pre = os.path.join(args.data_dir, "flu-states", "bnpcovreg_mu_mean.csv")
-    if os.path.exists(pre):
-        bnp_mu = np.loadtxt(pre, delimiter=",")[:, None]
+    # Fox & Dunson comparison arm (reference flutrends/benchmark.py:146-152
+    # reads MATLAB-produced CSVs; --bnp fits it, apps/flutrends/
+    # bnp_covreg.py)
+    bnp_mu = bnp_cov = None
+    if args.bnp:
+        from functionalmf_tpu_torch.apps.flutrends.bnp_covreg import (
+            fit_bnp_covreg)
+        print("Fitting BNP-CovReg (Fox & Dunson 2015), niter={}".format(
+            args.bnp_niter))
+        out = fit_bnp_covreg(Y_train[:, 0, :], niter=args.bnp_niter,
+                             nburn=args.bnp_burn, seed=args.seed,
+                             verbose=True, device=args.device)
+        fits["bnp_covreg"] = out
+        bnp_mu = out["mu"].mean(axis=0)[:, None]        # (nrows, 1, T)
+        sd = np.sqrt(out["var_diag"])                   # (S, nrows, T)
+        draws = out["mu"][None] + rng.normal(
+            size=(20,) + out["mu"].shape) * sd[None]
+        draws = draws.reshape((-1,) + out["mu"].shape[1:])[:, :, None]
+        lo = np.percentile(draws, 2.5, axis=0)
+        hi = np.percentile(draws, 97.5, axis=0)
+        bnp_cov = dict(cov_in=coverage(Y, lo, hi, is_in_sample),
+                       cov_out=coverage(Y, lo, hi, is_held_out))
+        if args.outdir:
+            os.makedirs(args.outdir, exist_ok=True)
+            np.savetxt(os.path.join(args.outdir, "bnpcovreg_mu_mean.csv"),
+                       bnp_mu[:, 0], delimiter=",")
+    else:
+        pre = os.path.join(args.data_dir, "flu-states",
+                           "bnpcovreg_mu_mean.csv")
+        if os.path.exists(pre):
+            bnp_mu = np.loadtxt(pre, delimiter=",")[:, None]
+
+    if bnp_mu is not None:
         r_in = np.sqrt(np.mean((Y[is_in_sample] - bnp_mu[is_in_sample]) ** 2))
         r_out = np.sqrt(np.mean((Y[is_held_out] - bnp_mu[is_held_out]) ** 2))
         m_in = np.mean(np.abs(Y[is_in_sample] - bnp_mu[is_in_sample]))
@@ -161,6 +207,10 @@ def run(args):
         print("Out-sample  MAE: {:.2f}".format(m_out))
         table["bnp_covreg"] = dict(rmse_in=r_in, rmse_out=r_out,
                                    mae_in=m_in, mae_out=m_out)
+        if bnp_cov is not None:
+            print("In-sample  coverage: {:.2f}%".format(bnp_cov["cov_in"]))
+            print("Out-sample coverage: {:.2f}%".format(bnp_cov["cov_out"]))
+            table["bnp_covreg"].update(bnp_cov)
     return table, fits
 
 

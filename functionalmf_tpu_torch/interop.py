@@ -16,7 +16,10 @@ black-box model, a pytree of arrays that a per-sweep hook may rewrite
 ``data_from_numpy`` / ``data_to_numpy``. ``gamma_grid_likelihood`` builds
 the port's dose-response likelihood from the numpy ``(mean_grid,
 mean_probs, variance)`` the JAX package's is built from, so that both
-evaluate the same mixture.
+evaluate the same mixture. A BNP-CovReg state (``theta``, ``zeta``,
+``psi``, ``xi``, ``phi``, ``delta``, ``invSig``; no chain axis,
+apps/flutrends/bnp_covreg.py) crosses through ``state_from_numpy`` /
+``state_to_numpy`` as well.
 """
 from __future__ import annotations
 

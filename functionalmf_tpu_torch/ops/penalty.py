@@ -9,8 +9,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["first_difference_matrix", "get_delta", "bayes_delta",
-           "hypercube_edges", "matrix_from_edges", "bayes_grid_penalty",
-           "num_penalty_rows", "penalty_half_bandwidth"]
+           "hypercube_edges", "matrix_from_edges", "grid_penalty_matrix",
+           "bayes_grid_penalty", "num_penalty_rows", "penalty_half_bandwidth"]
 
 
 def first_difference_matrix(n: int) -> np.ndarray:
@@ -64,6 +64,12 @@ def matrix_from_edges(edges) -> np.ndarray:
         D[i, min(s, t)] = w
         D[i, max(s, t)] = -w
     return D
+
+
+def grid_penalty_matrix(dims, k: int) -> np.ndarray:
+    """Graph trend-filtering penalty over a hypercube grid
+    (utils.py:51-54)."""
+    return get_delta(matrix_from_edges(hypercube_edges(dims)), k)
 
 
 def bayes_grid_penalty(dims, k: int, anchor: int = 0) -> np.ndarray:

@@ -8,12 +8,15 @@ reconstruction and optional binary row features coupled through a
 nonnegative loading matrix R (then (W, V, R) comes back). Every
 least-squares subproblem is k-dimensional, so its Gram matrix and moment
 vector are assembled for all subproblems at once with einsums and each is
-solved by the Gram-form Lawson-Hanson NNLS in numpy (the JAX package's
-fallback when its native host library is absent).
+solved by the Gram-form Lawson-Hanson NNLS of the native host library
+(``utils/native.py:nnls_gram_batch``), as in the JAX package;
+``_nnls_gram_one`` is its plain numpy version.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from functionalmf_tpu_torch.utils.native import nnls_gram_batch
 
 __all__ = ["tensor_nmf"]
 
@@ -62,7 +65,7 @@ def _nnls_gram_one(G, f, tol_scale=1e-11):
 
 def _nnls_gram_batch(G, F):
     """(nb, k, k), (nb, k) -> (nb, k) nonnegative solutions."""
-    return np.stack([_nnls_gram_one(G[i], F[i]) for i in range(len(F))])
+    return nnls_gram_batch(G, F)
 
 
 def _capped_resolve(G, f, x0, cap_design, max_entry):

@@ -1,15 +1,56 @@
-"""Pool-adjacent-violators (PAV) monotone projection of factor curves.
+"""Pool-adjacent-violators (PAV) monotone projections.
 
 Counterpart of functionalmf_tpu/utils/pav.py (reference functionalmf/
 utils.py:218-252, 458-492), host numpy, re-implemented here because
-importing the JAX package imports jax. ``tensor_nmf(monotone=True)``
+importing the JAX package imports jax. ``pav`` runs in the native host
+library (``utils/native.py``), as the JAX package's does when its library
+is built; ``_pav_numpy`` is its plain version. ``tensor_nmf(monotone=True)``
 calls ``factor_pav``.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["factor_pav"]
+from functionalmf_tpu_torch.utils import native
+
+__all__ = ["pav", "factor_pav"]
+
+
+def _pav_numpy(y):
+    """Monotone-increasing PAV smoothing (utils.py:458-492 semantics),
+    stack-based and linear-time."""
+    y = np.asarray(y, dtype=float)
+    if y.ndim != 1:
+        raise ValueError(f"pav takes a 1-d array, got shape {y.shape}")
+    n = len(y)
+    vals = np.empty(n)
+    wts = np.empty(n)
+    idx = np.empty(n, dtype=int)
+    top = 0
+    for i in range(n):
+        vals[top] = y[i]
+        wts[top] = 1.0
+        idx[top] = i
+        top += 1
+        while top > 1 and vals[top - 2] > vals[top - 1]:
+            w = wts[top - 2] + wts[top - 1]
+            vals[top - 2] = (wts[top - 2] * vals[top - 2]
+                             + wts[top - 1] * vals[top - 1]) / w
+            wts[top - 2] = w
+            top -= 1
+    out = np.empty(n)
+    start = 0
+    for b in range(top):
+        end = idx[b + 1] if b + 1 < top else n
+        out[start:end] = vals[b]
+        start = end
+    return out
+
+
+def pav(y):
+    """Monotone-increasing smoothing of y (utils.py:458-492), in the
+    native host library."""
+    return native.pav(y)
 
 
 def factor_pav(W, V, in_place=False):

@@ -153,16 +153,24 @@ def test_make_loglikelihood_row_column_and_full_calls(with_features):
     np.testing.assert_allclose(lifted.numpy(), loop.numpy(), rtol=1e-5)
 
 
+@pytest.mark.parametrize("nnls", ["numpy", "native"])
 @pytest.mark.parametrize("features", [False, True])
-def test_tensor_nmf_max_entry_and_row_features_match_jax(features,
+def test_tensor_nmf_max_entry_and_row_features_match_jax(features, nnls,
                                                          monkeypatch):
-    """The JAX package solves its NNLS problems through its numpy fallback
-    here (``_nnls_gram_one``, its own function), as the port always does:
-    its native library agrees to 1e-15 only, and the monotone projection
+    """Both packages solve their NNLS problems the same way: through their
+    numpy versions (``_nnls_gram_one``, each its own), or through their
+    native libraries, both built from native/fmf_host.cpp. The native and
+    the numpy solver agree to 1e-15 only, and the monotone projection
     pools on exact ties between cells that sit at the cap."""
     from functionalmf_tpu.utils import nmf as jnmf
-    monkeypatch.setattr(jnmf, "_nnls_gram_batch", lambda G, F: np.stack(
-        [jnmf._nnls_gram_one(G[i], F[i]) for i in range(len(F))]))
+    from functionalmf_tpu_torch.utils import nmf as tnmf
+    if nnls == "numpy":
+        for mod in (jnmf, tnmf):
+            monkeypatch.setattr(mod, "_nnls_gram_batch", lambda G, F, m=mod:
+                                np.stack([m._nnls_gram_one(G[i], F[i])
+                                          for i in range(len(F))]))
+    else:
+        from functionalmf_tpu.utils import native as jnative  # noqa: F401
     Y, X, *_ = _dose_data(seed=3, n=6, m=5, T=7)
     Y = Y * 1.6               # some reconstructions reach the cap
     kw = dict(monotone=True, max_entry=0.999)

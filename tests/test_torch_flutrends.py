@@ -101,10 +101,33 @@ def test_app_main_runs_on_cpu(tmp_path, nu2_mode):
 
 
 def test_bnp_arm_raises_and_device_defaults_to_the_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="bnp"):
-        tbench.main(["--device", "cpu", "--bnp"])
-    assert tbench.parse_args([]).device == "cuda"
-    assert tbench.parse_args([]).nembeds == [5, 10]
+    """``--bnp`` fits BNP-CovReg (L=10, k=20, 20 iterations) on the CPU
+    beside a short BTF run: a ``bnp_covreg`` row with RMSE, MAE and band
+    coverage, finite, its mean written under --outdir; the BNP draws of
+    the JAX package's shapes. (20 iterations from the prior fit little in
+    either package; fit quality is tests/test_torch_bnp_covreg.py's
+    in-distribution test and chip_smoke.py's gate.) Both arms still run
+    on the card by default."""
+    Y = _write_mats(tmp_path)
+    argv = ["--data-dir", str(tmp_path), "--device", "cpu", "--nembeds", "2",
+            "--nburn", "5", "--nthin", "1", "--nsamples", "5", "--bnp",
+            "--bnp-niter", "20", "--outdir", str(tmp_path / "out")]
+    table, fits = tbench.run(tbench.parse_args(argv))
+    row = table["bnp_covreg"]
+    assert set(row) == {"cov_in", "cov_out", "rmse_in", "rmse_out",
+                        "mae_in", "mae_out"}
+    assert all(np.isfinite(v) for v in row.values())
+    assert 0 <= row["cov_out"] <= 100 and 0 < row["cov_in"] <= 100
+    assert row["mae_in"] <= row["rmse_in"] < 2 * np.log(Y).std()
+    out = fits["bnp_covreg"]
+    assert out["mu"].shape == out["var_diag"].shape == (2, 10, 60)
+    assert out["state"]["zeta"].shape == (10, 20, 60)
+    mean = np.loadtxt(tmp_path / "out" / "bnpcovreg_mu_mean.csv",
+                      delimiter=",")
+    np.testing.assert_allclose(mean, out["mu"].mean(0), rtol=1e-6)
+    args = tbench.parse_args([])
+    assert args.device == "cuda" and args.nembeds == [5, 10]
+    assert (args.bnp, args.bnp_niter, args.bnp_burn) == (False, 10000, 0)
 
 
 def test_metrics_match_jax(rng):

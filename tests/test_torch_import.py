@@ -17,7 +17,10 @@ MODULES = [
     "functionalmf_tpu_torch.apps.doseresponse.select_btf",
     "functionalmf_tpu_torch.apps.doseresponse.sim",
     "functionalmf_tpu_torch.apps.flutrends.benchmark",
+    "functionalmf_tpu_torch.apps.flutrends.bnp_covreg",
+    "functionalmf_tpu_torch.apps.flutrends.create_datasets",
     "functionalmf_tpu_torch.apps.politics.benchmark",
+    "functionalmf_tpu_torch.apps.politics.create_datasets",
     "functionalmf_tpu_torch.examples.binomial_tensor_filtering",
     "functionalmf_tpu_torch.examples.gaussian_tensor_filtering",
     "functionalmf_tpu_torch.examples.negbinom_tensor_filtering",
@@ -45,10 +48,14 @@ MODULES = [
     "functionalmf_tpu_torch.samplers.gass",
     "functionalmf_tpu_torch.samplers.horseshoe",
     "functionalmf_tpu_torch.samplers.slice1d",
+    "functionalmf_tpu_torch.utils",
+    "functionalmf_tpu_torch.utils.binary_mf",
     "functionalmf_tpu_torch.utils.diagnostics",
     "functionalmf_tpu_torch.utils.ep",
     "functionalmf_tpu_torch.utils.metrics",
+    "functionalmf_tpu_torch.utils.native",
     "functionalmf_tpu_torch.utils.nmf",
+    "functionalmf_tpu_torch.utils.nmf_bench",
     "functionalmf_tpu_torch.utils.pav",
 ]
 
