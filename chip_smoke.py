@@ -5,7 +5,8 @@ the conjugate and Polya-Gamma families (the flu-trends app, Gaussian and
 Binomial models at the GDELT width), the black-box-likelihood paths (the
 dose-response app with its U hook in both flavours, Row_constraints and a
 device hook on the Poisson recipe, checkpoint/resume, ESS), PGDS and the
-Poisson example, and BNP-CovReg (the flu-trends app's --bnp arm).
+Poisson example, BNP-CovReg (the flu-trends app's --bnp arm) and the
+device mesh.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,22 @@ Phases (any failure raises and exits non-zero before the last line):
      the card, run_gibbs at nchains=1 and nchains=4; both non-EP kernels
      must have launched in each run, every draw must be finite and
      feasible, and the results must carry the JAX package's keys and
-     shapes;
+     shapes; then the device mesh (functionalmf_tpu_torch/parallel), its
+     ranks spawned from this process after the build: (a) NCCL, a rank a
+     card (world size = the cards there are; (1, 1) on one card), chains
+     over dp, the recipe at nchains=4 through make_mesh and shard_state /
+     gather_state, 10 + 10 sweeps: the draws equal the unsharded run on
+     the card bit for bit; (b) four gloo ranks sharing the card, mesh
+     (dp=2, mp=2), bench.py's generator at 20x20x228 (mp=2 divides 20),
+     the red-black recipe and the seq schedule with EP, and the Gaussian
+     model on phase 6's data at 20x20x228, 1 + 1 sweeps each: every rank
+     launches both kernels of its path at its local shape (R=20, C=4560;
+     P=280 or 20, Tb=8; the counters each rank sends back; the Gaussian
+     path none), all ranks return the same draws, W and V agree with the
+     unsharded run on the card within rtol = atol = 1e-3 (on the GASS
+     paths but for picks that flip: at most 1% of the values), every
+     recipe draw feasible; the phase's seconds, the sweeps/s on the mesh
+     beside the unsharded run's and the collectives a sweep;
   4. politics: the port's app (functionalmf_tpu_torch.apps.politics.
      benchmark) on its synthetic 19x19x228 tensor, EP on, with the seq
      schedule (nchains=1), the red-black schedule (nchains=4) and the joint
@@ -110,7 +126,9 @@ Phases (any failure raises and exits non-zero before the last line):
      and 4 and in a seq round, the 4-wide tail, the joint update's 228,
      and a joint update at T=1000 on synthetic counts; the Poisson
      example's 11x12x20, k=3: R=11, a seq round and the tail of 12
-     columns), NaN y at held-out pairs; the EP variants with the politics path's own EP (the app's NMF
+     columns; a (2, 2) mesh rank's at 20x20x228: R=20, C=4560 with and
+     without EP, a colour phase's P=280 and a seq round's P=20 at Tb=8),
+     NaN y at held-out pairs; the EP variants with the politics path's own EP (the app's NMF
      warm start and ep_from_nmf sigma) and candidates around the warm
      start; rtol=1e-5 / atol=1e-3 (the sums run in another order); two
      launches on the same inputs must agree bit for bit; each kernel's
@@ -156,19 +174,20 @@ def fail(msg):
     sys.exit(1)
 
 
-def bench_data():
-    """bench.py:138-150, seed 42."""
+def bench_data(nrows=NROWS, ncols=NCOLS):
+    """bench.py:138-150, seed 42 (its 19 actors unless ``nrows``,
+    ``ncols`` say otherwise)."""
     rng = np.random.default_rng(42)
-    W = np.abs(rng.normal(1, 0.3, size=(NROWS, NEMBEDS)))
+    W = np.abs(rng.normal(1, 0.3, size=(nrows, NEMBEDS)))
     W[np.triu_indices(NEMBEDS, k=1)] = 0
-    V = np.abs(rng.normal(1, 0.3, size=(NCOLS, NDEPTH, NEMBEDS)))
+    V = np.abs(rng.normal(1, 0.3, size=(ncols, NDEPTH, NEMBEDS)))
     Y = rng.poisson(np.einsum("nk,mtk->nmt", W, V)).astype(float)
-    hold = rng.random((NROWS, NCOLS)) < 0.1
+    hold = rng.random((nrows, ncols)) < 0.1
     Y[hold] = np.nan
     Con = np.concatenate([np.eye(NDEPTH), np.zeros((NDEPTH, 1))], axis=1)
-    W0 = np.abs(rng.normal(1, 0.2, size=(NROWS, NEMBEDS)))
+    W0 = np.abs(rng.normal(1, 0.2, size=(nrows, NEMBEDS)))
     W0[np.triu_indices(NEMBEDS, k=1)] = 0
-    V0 = np.abs(rng.normal(1, 0.2, size=(NCOLS, NDEPTH, NEMBEDS)))
+    V0 = np.abs(rng.normal(1, 0.2, size=(ncols, NDEPTH, NEMBEDS)))
     return Y, Con, W0, V0, np.einsum("nk,mtk->nmt", W, V)
 
 
@@ -204,13 +223,17 @@ def politics_problem():
 
 def kernel_phase(dev, Y, W0, V0, pol, example):
     """Every kernel at every shape of the paths, the Poisson example's
-    (``example`` = its data and NMF warm start) included: agreement with
+    (``example`` = its data and NMF warm start) and a (2, 2) mesh rank's
+    at 20x20x228 (phase (b)) included: agreement with
     its plain version, two launches bit-identical, device and host time,
     bound."""
     from functionalmf_tpu_torch.ops import fused_ll_bench as B
+    mp = mesh_problem()
     try:
         records = B.run_cases(B.path_cases(dev, Y, W0, V0, pol)
-                              + B.example_cases(dev, *example))
+                              + B.example_cases(dev, *example)
+                              + B.mesh_cases(dev, mp["Y"], mp["W0"],
+                                             mp["V0"], mp["ep"]))
     except AssertionError as exc:
         fail(str(exc))
     for rec in records:
@@ -352,6 +375,319 @@ def slice_run(dev, Y, Con, W0, V0, nchains, nburn, nsamples):
     return res, launches
 
 
+# ----------------------------------------------------------------------
+# the device mesh (parallel/mesh.py): ranks spawned from this process
+# ----------------------------------------------------------------------
+MESH_N = 20              # phase (b)'s actors: mp=2 divides 20 rows and columns
+MESH_TIMED = 5           # sweeps timed on the mesh and unsharded
+MESH_DEADLINE_S = 300.0
+# what each path of phase (b) must launch on every rank, and at which local
+# shape (2 chains x 10 rows; 2 chains x 10 columns x 14 blocks); the
+# Gaussian model launches no fused kernel
+MESH_PATHS = {
+    "redblack": {"fused_row_ll": "R=20, C=4560",
+                 "fused_col_block_ll": "P=280, Tb=8"},
+    "seq+EP": {"fused_row_ll_ep": "R=20, C=4560",
+               "fused_col_block_ll_ep": "P=20, Tb=8"},
+    "gaussian": {},
+}
+
+
+# Phase (b)'s hold on the draws. A sharded sweep computes the unsharded
+# one up to the rounding of its sums over mp and of the ranks' smaller
+# batched calls; a GASS pick is discrete, so a candidate
+# that sits at the slice's edge can flip, and then its whole block (or
+# row) moves. At most this share of W's and of V's values may lie beyond
+# rtol = atol = 1e-3 of the unsharded run; a partitioning fault (a wrong
+# slab, slice or reduction) moves nearly all of them.
+MESH_FAR_MAX = 0.01
+
+
+def mesh_far_share(got, want):
+    return float((np.abs(got - want) > 1e-3 + 1e-3 * np.abs(want)).mean())
+
+
+def recipe_model(dev, shape, Con, W0, V0, nchains, schedule="redblack",
+                 ep=None, mesh=None):
+    """The bench.py recipe (red-black, blocks of 8, ngrid 100, interweave
+    and factor_rebalance on), or its seq schedule with EP centres."""
+    from functionalmf_tpu_torch import (
+        ConstrainedNonconjugateBayesianTensorFiltering as Model)
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    return Model(*shape, poisson_loglik, Con, device=dev, nembeds=NEMBEDS,
+                 tf_order=2, sigma2_init=0.5, lam2_init=0.1, W_init=W0,
+                 V_init=V0, gass_ngrid=NGRID, seed=0, nchains=nchains,
+                 v_schedule="redblack" if schedule == "redblack" else "seq",
+                 v_block_size=BLOCK, ep_approx=ep, mesh=mesh,
+                 loglikelihood_cellfn=F.POISSON)
+
+
+def _mesh_rank(rank, world, url, backend, out, job, args):
+    try:
+        from functionalmf_tpu_torch.parallel.mesh import init_distributed
+        init_distributed(url, world, rank, backend=backend,
+                         timeout_s=MESH_DEADLINE_S)
+        out.put((rank, "ok", globals()[job](rank, world, *args)))
+    except BaseException:                                   # noqa: BLE001
+        import traceback
+        out.put((rank, "error", traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_mesh(job, world, backend, *args):
+    """``job(rank, world, *args)`` on ``world`` spawned ranks of one
+    process group (a file:// rendezvous in a temporary directory); their
+    results in rank order. A rank that fails, or a group past its
+    deadline, fails the run; every rank process is ended."""
+    import queue
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    out = ctx.Queue()
+    with tempfile.TemporaryDirectory() as rdv:
+        url = "file://" + rdv + "/rendezvous"
+        procs = [ctx.Process(target=_mesh_rank, args=(
+            r, world, url, backend, out, job, args)) for r in range(world)]
+        for p in procs:
+            p.start()
+        results, errors = {}, []
+        stop = time.monotonic() + MESH_DEADLINE_S
+        try:
+            while len(results) + len(errors) < world:
+                if time.monotonic() > stop:
+                    fail(f"mesh {job}: ranks did not finish in "
+                         f"{MESH_DEADLINE_S} s")
+                try:
+                    rank, status, val = out.get(timeout=1.0)
+                except queue.Empty:
+                    if any(p.exitcode not in (None, 0) for p in procs):
+                        fail(f"mesh {job}: a rank died, exit codes "
+                             f"{[p.exitcode for p in procs]}")
+                    continue
+                (results.__setitem__(rank, val) if status == "ok"
+                 else errors.append(f"rank {rank}: {val}"))
+            if errors:
+                fail(f"mesh {job}:\n" + "\n".join(errors))
+            for p in procs:
+                p.join(timeout=30)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    return [results[r] for r in range(world)]
+
+
+def _numpy_results(res):
+    return {k: v for k, v in res.items() if isinstance(v, np.ndarray)}
+
+
+def nccl_rank(rank, world, Y, Con, W0, V0, nburn, nsamples):
+    """Phase (a) on one rank: NCCL, a card a rank, chains over dp."""
+    import torch.distributed as dist
+    from functionalmf_tpu_torch.parallel.mesh import (
+        gather_state, make_mesh, shard_state, state_specs)
+    mesh = make_mesh(world, 1, device_type="cuda")
+    one = torch.ones(1, device=mesh.device)
+    dist.all_reduce(one)
+    if int(one.item()) != world:
+        raise RuntimeError(f"NCCL all_reduce gave {one.item()}, not {world}")
+    model = recipe_model(mesh.device, Y.shape, Con, W0, V0, nchains=4,
+                         mesh=mesh)
+    whole = model.state
+    specs = model.state_partition_specs()
+    local = shard_state(whole, mesh, specs)
+    back = gather_state(local, mesh, state_specs(mesh, specs, whole))
+    round_trip = all(torch.equal(local[k], model._state[k])
+                     and torch.equal(back[k], whole[k]) for k in whole)
+    res = model.run_gibbs(Y, nburn=nburn, nthin=1, nsamples=nsamples,
+                          verbose=False)
+    return dict(res=_numpy_results(res), round_trip=round_trip,
+                device=str(mesh.device))
+
+
+def mesh_nccl_phase(dev, Y, Con, W0, V0, nburn=10, nsamples=10):
+    """(a): NCCL at world size = the cards there are, chains over dp, the
+    bench.py recipe at 19x19x228, nchains=4: the draws equal the unsharded
+    run on the card bit for bit."""
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    outs = spawn_mesh("nccl_rank", world, "nccl", Y, Con, W0, V0, nburn,
+                      nsamples)
+    ref = recipe_model(dev, Y.shape, Con, W0, V0, nchains=4).run_gibbs(
+        Y, nburn=nburn, nthin=1, nsamples=nsamples, verbose=False)
+    for r, o in enumerate(outs):
+        if not o["round_trip"]:
+            fail(f"mesh nccl rank {r}: shard_state/gather_state did not give "
+                 "the model's slices and the global state back")
+        for key, want in _numpy_results(ref).items():
+            if not np.array_equal(o["res"][key], want):
+                fail(f"mesh nccl rank {r}: {key} differs from the unsharded "
+                     "run on the card")
+    print(f"mesh (a) nccl world={world} mesh=({world}, 1) 19x19x228 "
+          f"nchains=4, {nburn} + {nsamples} sweeps: draws equal to the "
+          f"unsharded run bit for bit on {[o['device'] for o in outs]}")
+    phase_seconds("mesh (a) NCCL", t0)
+
+
+def mesh_problem():
+    """Phase (b)'s data: bench.py's generator at 20x20x228, EP centres at
+    the true rate, sigma sqrt(rate) + 0.5 (wide enough not to hold the
+    chain); and the Gaussian phase's data at 20x20x228 (``Yg``)."""
+    Y, Con, W0, V0, M = bench_data(MESH_N, MESH_N)
+    Mu, rng = synthetic_mu(MESH_N, MESH_N)
+    Yg = Mu[..., None] + rng.normal(0, 0.5, size=Mu.shape + (2,))
+    Yg[rng.random((MESH_N, MESH_N)) < 0.1] = np.nan
+    return dict(Y=Y, Con=Con, W0=W0, V0=V0, ep=(M, np.sqrt(M) + 0.5), Yg=Yg)
+
+
+def mesh_path_model(path, dev, prob, mesh=None):
+    """(model, data) of a phase (b) path, nchains=4 at 20x20x228."""
+    if path == "gaussian":
+        from functionalmf_tpu_torch import GaussianBayesianTensorFiltering
+        return GaussianBayesianTensorFiltering(
+            MESH_N, MESH_N, NDEPTH, device=dev, nembeds=NEMBEDS, tf_order=2,
+            sigma2_init=0.5, lam2_init=0.1, nu2_init=1, seed=0, nchains=4,
+            mesh=mesh), prob["Yg"]
+    Y = prob["Y"]
+    return recipe_model(dev, Y.shape, prob["Con"], prob["W0"], prob["V0"],
+                        nchains=4, schedule=path, mesh=mesh,
+                        ep=prob["ep"] if path == "seq+EP" else None), Y
+
+
+def gloo_rank(rank, world, prob):
+    """Phase (b) on one rank of four sharing the card: the (2, 2) mesh, the
+    red-black recipe, the seq schedule with EP and the Gaussian model, 1 + 1
+    sweeps each; the launches and local shapes of the fused kernels, then
+    MESH_TIMED timed sweeps with every collective counted and timed."""
+    from functionalmf_tpu_torch.models import constrained as C
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    from functionalmf_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(2, 2, device_type="cuda")
+    shapes = set()
+    real_row, real_col = C.fused_row_ll_batched, C.fused_col_block_ll_batched
+
+    def row(cands, bt, *a):
+        ep_on = bool(a[-1]) if len(a) > 4 else False
+        shapes.add(("fused_row_ll" + "_ep" * ep_on,
+                    f"R={cands.shape[0]}, C={bt.shape[1]}"))
+        return real_row(cands, bt, *a)
+
+    def col(cands, *a):
+        ep_on = bool(a[-1]) if len(a) > 6 else False
+        shapes.add(("fused_col_block_ll" + "_ep" * ep_on,
+                    f"P={cands.shape[0]}, Tb={cands.shape[2]}"))
+        return real_col(cands, *a)
+
+    C.fused_row_ll_batched, C.fused_col_block_ll_batched = row, col
+    calls = {"all_gather": [0, 0.0], "all_reduce": [0, 0.0]}
+    for name in calls:
+        real = getattr(mesh, name)
+
+        def timed(*a, _real=real, _c=calls[name], **kw):
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            _c[0] += 1
+            _c[1] += time.perf_counter() - t0
+            return out
+        setattr(mesh, name, timed)
+    out = {}
+    for path in MESH_PATHS:
+        model, Y = mesh_path_model(path, mesh.device, prob, mesh)
+        shapes.clear()
+        F.reset_launch_counts()
+        res = model.run_gibbs(Y, nburn=1, nthin=1, nsamples=1,
+                              verbose=False)
+        torch.cuda.synchronize()
+        launches = dict(F.launch_counts)
+        seen = sorted(shapes)
+        for c in calls.values():
+            c[:] = [0, 0.0]
+        t0 = time.perf_counter()
+        model.run_gibbs(Y, nburn=MESH_TIMED - 1, nthin=1, nsamples=1,
+                        verbose=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[path] = dict(
+            res=_numpy_results(res), launches=launches, shapes=seen,
+            slack=(model._worst_constraint_slack() if path != "gaussian"
+                   else 0.0), seconds=dt,
+            collectives={k: (c[0] / MESH_TIMED, 1e3 * c[1] / MESH_TIMED)
+                         for k, c in calls.items()})
+    return out
+
+
+def mesh_gloo_phase(dev):
+    """(b): four ranks share the card in a gloo group, mesh (dp=2, mp=2),
+    the GDELT-shaped recipe data at 20x20x228, k=5, nchains=4, ngrid 100:
+    the red-black recipe and the seq schedule with EP centres, and the
+    Gaussian model on the Gaussian phase's data at 20x20x228, 1 + 1 sweeps
+    each. Every rank launches both kernels of its path at its local shape
+    (the Gaussian path none); every rank returns the same draws, and W and
+    V agree with the unsharded run on the card within rtol = atol = 1e-3
+    (tests/test_torch_mesh_runs.py) but, on the GASS paths, for the picks
+    that flip (at most MESH_FAR_MAX of the values); every recipe draw is
+    feasible. Prints the phase's seconds and the sweeps/s on the mesh
+    beside the unsharded run's at the same width."""
+    t0 = time.perf_counter()
+    prob = mesh_problem()
+    outs = spawn_mesh("gloo_rank", 4, "gloo", prob)
+    t_ranks = time.perf_counter() - t0
+    for schedule, want_shapes in MESH_PATHS.items():
+        model, Y = mesh_path_model(schedule, dev, prob)
+        ref = model.run_gibbs(Y, nburn=1, nthin=1, nsamples=1,
+                              verbose=False)
+        allowed = 0.0 if schedule == "gaussian" else MESH_FAR_MAX
+        t1 = time.perf_counter()
+        model.run_gibbs(Y, nburn=MESH_TIMED - 1, nthin=1, nsamples=1,
+                        verbose=False)
+        torch.cuda.synchronize()
+        unsharded_rate = MESH_TIMED / (time.perf_counter() - t1)
+        tag = f"mesh (b) {schedule}"
+        for r, o in enumerate(outs):
+            o = o[schedule]
+            check_launches(f"{tag} rank {r}", o["launches"], want_shapes)
+            for name, shape in want_shapes.items():
+                if (name, shape) not in o["shapes"]:
+                    fail(f"{tag} rank {r}: {name} did not launch at the "
+                         f"local shape {shape} (launched at {o['shapes']})")
+            keys = ("W", "V") + (("nu2",) if schedule == "gaussian" else ())
+            for key in keys:
+                if not np.array_equal(o["res"][key], outs[0][schedule][
+                        "res"][key]):
+                    fail(f"{tag} rank {r}: its {key} differs from rank 0's")
+                far = mesh_far_share(o["res"][key], ref[key])
+                if far > allowed:
+                    fail(f"{tag} rank {r}: {far:.2%} of {key} differs from "
+                         "the unsharded run on the card by more than "
+                         f"rtol = atol = 1e-3 (at most {allowed:.0%}: "
+                         "the GASS picks that flip)")
+            if schedule == "gaussian":
+                continue
+            tau = np.einsum("snk,smtk->snmt", o["res"]["W"], o["res"]["V"])
+            if tau.min() < -1e-5 or o["slack"] < -1e-5:
+                fail(f"{tag} rank {r}: infeasible draw (min tau "
+                     f"{tau.min():.3e}, slack {o['slack']:.3e})")
+        o0 = outs[0][schedule]
+        diffs = {k: (float(np.abs(o0["res"][k] - ref[k]).max()),
+                     int(round(mesh_far_share(o0["res"][k], ref[k])
+                               * ref[k].size)), ref[k].size)
+                 for k in ("W", "V", "sigma2", "lam2", "nu2") if k in ref}
+        print(f"{tag}: launches a rank {json.dumps(o0['launches'])}, local "
+              f"shapes {o0['shapes']}")
+        print(f"{tag}: |mesh - unsharded| (max, values beyond 1e-3, values):"
+              f" {json.dumps(diffs)}")
+        print(f"{tag}: sweeps_per_sec mesh(2,2) "
+              f"{MESH_TIMED / max(o['seconds'] for o in (x[schedule] for x in outs)):.3f}"
+              f" unsharded {unsharded_rate:.3f} (20x20x228, nchains=4)")
+        print(f"{tag}: collectives a sweep a rank (calls, ms): "
+              f"{json.dumps(o0['collectives'])}")
+    print(f"mesh (b) ranks' part: {t_ranks:.1f}s")
+    phase_seconds("mesh (b) gloo, four ranks on one card", t0)
+
+
 def agreement_phase(dev, v_schedule, ep, gass_method="grid"):
     """A small model on the card (kernels) and on the CPU (plain versions):
     same posterior mean of Mu up to Monte Carlo error, the rel < 0.12
@@ -449,14 +785,15 @@ def politics_agreement(dev, pol, nburn=20, nsamples=20):
         fail(f"politics: card and CPU posteriors disagree (rel={rel:.4f})")
 
 
-def synthetic_mu():
+def synthetic_mu(nrows=NROWS, ncols=NCOLS):
     """A smooth 19x19x228 mean tensor of rank 5 with entries of order 1
-    (seed 42): the Gaussian phase's truth and the Binomial phase's logits."""
+    (seed 42): the Gaussian phase's truth and the Binomial phase's logits
+    (``nrows`` x ``ncols`` for the mesh phase)."""
     rng = np.random.default_rng(42)
-    W = rng.normal(0, 1, size=(NROWS, NEMBEDS))
+    W = rng.normal(0, 1, size=(nrows, NEMBEDS))
     W[np.triu_indices(NEMBEDS, k=1)] = 0
-    V = np.cumsum(rng.normal(0, 0.08, size=(NCOLS, NDEPTH, NEMBEDS)), axis=1) \
-        + rng.normal(0, 0.5, size=(NCOLS, 1, NEMBEDS))
+    V = np.cumsum(rng.normal(0, 0.08, size=(ncols, NDEPTH, NEMBEDS)), axis=1) \
+        + rng.normal(0, 0.5, size=(ncols, 1, NEMBEDS))
     return np.einsum("nk,mtk->nmt", W, V), rng
 
 
@@ -1760,6 +2097,10 @@ def main():
                       nsamples=RECIPE_SWEEPS // 2)
     slice_run(dev, Y, Con, W0, V0, nchains=4, nburn=20, nsamples=20)
     stamp("the red-black recipe")
+    # the mesh: its ranks load the kernels built above
+    mesh_nccl_phase(dev, Y, Con, W0, V0)
+    mesh_gloo_phase(dev)
+    stamp("the mesh")
     # the politics app's default schedule first: its launches are the EP
     # kernels' record
     l_ep, s_ep, _ = politics_run("seq nchains=1", ["--nburn", "30"], 1, 30,

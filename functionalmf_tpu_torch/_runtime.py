@@ -12,6 +12,10 @@
 * ``tree_map`` / ``tree_leaves`` walk a data pytree (dicts, tuples and
   lists of leaves), the structure the black-box likelihoods take their
   data in (``jax.tree_util`` in the JAX package).
+* ``build_lock`` serialises the builds of one build directory across
+  processes (an ``fcntl`` lock on the directory itself, which leaves no
+  file behind), so that ranks started together build a library once and
+  load the same file.
 * ``SweepRNG`` replaces the JAX package's ``_fold`` key derivation
   (functionalmf_tpu/models/base.py:71-74, 622-625, 708-711): one
   ``torch.Generator`` on the model's device, re-seeded at every sweep from
@@ -21,10 +25,14 @@
 """
 from __future__ import annotations
 
+import contextlib
+import fcntl
+import os
+
 import torch
 
 __all__ = ["resolve_device", "require_full_f32", "mix_seed", "SweepRNG",
-           "tree_map", "tree_leaves"]
+           "tree_map", "tree_leaves", "build_lock"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -65,6 +73,20 @@ def tree_leaves(tree):
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+@contextlib.contextmanager
+def build_lock(build_dir):
+    """Hold the exclusive lock of ``build_dir`` (made if missing): a
+    process that builds there checks for the library, and compiles it,
+    inside this block."""
+    os.makedirs(build_dir, exist_ok=True)
+    fd = os.open(build_dir, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)             # closing the descriptor drops the lock
 
 
 def _splitmix64(x: int) -> int:

@@ -2,7 +2,11 @@
 
 ``state_from_numpy`` takes ``{k: np.asarray(v) for k, v in
 jax_model.state.items()}`` and returns the port's state dict on
-``device``; ``state_to_numpy`` goes the other way. With
+``device`` (with ``mesh``, this rank's slices of it: ``parallel/mesh.py:
+shard_state``); ``state_to_numpy`` goes the other way. Under a mesh
+``Model.load_state`` takes the global numpy state as well and keeps this
+rank's slices, and ``state_to_numpy(model.state)`` gives it back whole
+(``model.state`` gathers it on every rank). With
 ``Model.load_state`` both packages then compute from the same W, V, Tau2,
 lam2 and sigma2, and from the same ``nu2`` (Gaussian, Binomial, NegBinom)
 and ``R`` (NegBinom), which cross as every other entry does. Keys and
@@ -32,10 +36,17 @@ __all__ = ["state_from_numpy", "state_to_numpy", "data_from_numpy",
            "data_to_numpy", "gamma_grid_likelihood"]
 
 
-def state_from_numpy(np_state, device):
-    return {k: torch.as_tensor(np.array(v, dtype=np.float32),
-                               device=torch.device(device))
-            for k, v in np_state.items()}
+def state_from_numpy(np_state, device, mesh=None, specs=None):
+    """The state as float32 tensors on ``device``; with ``mesh``, this
+    rank's slices by ``specs`` (a model's ``state_partition_specs()``;
+    chains only without)."""
+    state = {k: torch.as_tensor(np.array(v, dtype=np.float32),
+                                device=torch.device(device))
+             for k, v in np_state.items()}
+    if mesh is None:
+        return state
+    from functionalmf_tpu_torch.parallel.mesh import shard_state
+    return shard_state(state, mesh, specs)
 
 
 def state_to_numpy(state):

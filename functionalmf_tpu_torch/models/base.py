@@ -20,7 +20,22 @@ the JAX driver's options: the per-sweep hooks (``callback`` on the host,
 ``traced_callback`` on the device, with ``collect_data_keys``),
 ``checkpoint_path`` / ``resume``, ``profile_dir`` and ``key``; the
 constructor takes ``data_dtype``; ``select_hyperparams_DIC`` is the DIC
-grid search. Not ported: the device mesh.
+grid search.
+
+Under a device mesh (``mesh=``, ``parallel/mesh.py``) each rank holds its
+slices of the state (``state_partition_specs``: chains over dp, W rows
+and V / Tau2 columns over mp, an axis dropped where it does not divide);
+``state``, ``W`` and the other properties gather the global values, and
+``load_state`` and the setters take global values and keep this rank's
+slice. Every draw is taken at its global shape, in the order of the
+unsharded run, and each rank keeps its part (``_Part.take``), so a
+sharded run computes what the unsharded run computes up to the order of
+its sums. The collectives of the prior sweep: the sum of W^2 over rows
+(sigma2) and of the V prior terms over columns (lam2), all-reduce SUM
+over mp; the non-finite guard's per-chain verdict, all-reduce MIN over
+mp. ``run_gibbs`` all-gathers the collected draws once a chunk and
+returns, on every rank, the dict of the unsharded run. Under a mesh
+every rank calls the model's methods together (they gather).
 """
 from __future__ import annotations
 
@@ -36,15 +51,18 @@ from functionalmf_tpu_torch._runtime import (SweepRNG, require_full_f32,
                                              tree_map)
 from functionalmf_tpu_torch.ops.mvn import cholesky_psd
 from functionalmf_tpu_torch.ops.penalty import bayes_grid_penalty
+from functionalmf_tpu_torch.parallel.mesh import (
+    DP_AXIS, MP_AXIS, feasible_spec, gather_state, shard_state)
 from functionalmf_tpu_torch.samplers.conjugate import (
     ConjugateInverseGammaPrior, standard_gamma)
 from functionalmf_tpu_torch.samplers.horseshoe import (
-    resample_lam2, resample_tau2_ladder, sample_horseshoe,
-    sample_horseshoe_plus)
+    _exponential, lam2_shape, resample_lam2, resample_tau2_ladder,
+    sample_horseshoe, sample_horseshoe_plus)
 
 __all__ = ["BayesianTensorFiltering", "tril_mask", "packed_w_len"]
 
-_LATER = "not ported yet (ROADMAP.md, Queue 1)"
+# what waits under a mesh (ROADMAP.md, Queue 1)
+MESH_LATER = "not supported under a mesh yet (ROADMAP.md, Queue 1: {})"
 # sweeps at most under the profiler of ``run_gibbs(profile_dir=)``: every
 # launch adds an event to its buffer
 _PROFILE_MAX_SWEEPS = 16
@@ -62,6 +80,72 @@ def packed_w_len(nrows: int, nembeds: int) -> int:
         return ((nembeds * nembeds - nembeds) // 2 + nembeds
                 + (nrows - nembeds) * nembeds)
     return (nrows * nrows - nrows) // 2 + nrows
+
+
+class _Part:
+    """This rank's part of a model's chains, rows and columns under a
+    mesh: each a slice of the global axis, and whether the axis is split
+    (a mesh axis that does not divide it leaves it whole on every rank).
+    ``take`` cuts this rank's part out of a draw taken at the global
+    shape; the reductions and gathers run over mp only where the axis is
+    split. Without a mesh every slice is the whole axis and every method
+    returns its input."""
+
+    def __init__(self, mesh, nchains, nrows, ncols):
+        self.mesh = mesh
+
+        def part(n, axis):
+            if (mesh is None or mesh.size(axis) == 1
+                    or feasible_spec(mesh, (axis,), (n,)) == (None,)):
+                return slice(0, n), False
+            b = n // mesh.size(axis)
+            i = mesh.index(axis)
+            return slice(i * b, (i + 1) * b), True
+
+        self.c, self.split_c = part(nchains, DP_AXIS)
+        self.r, self.split_r = part(nrows, MP_AXIS)
+        self.m, self.split_m = part(ncols, MP_AXIS)
+        self.nc = self.c.stop - self.c.start
+        self.nr = self.r.stop - self.r.start
+        self.nm = self.m.stop - self.m.start
+        self._axes = {"c": (self.c, self.split_c), "r": (self.r, self.split_r),
+                      "m": (self.m, self.split_m)}
+
+    def take(self, x, dims):
+        """This rank's part of ``x``, a draw at the global shape: ``dims``
+        names x's leading axes, 'c' chains, 'r' rows, 'm' columns, '.' an
+        axis kept whole."""
+        idx, cut = [], False
+        for ch in dims:
+            sl, split = self._axes[ch] if ch != "." else (None, False)
+            idx.append(sl if split else slice(None))
+            cut = cut or split
+        return x[tuple(idx)] if cut else x
+
+    def _reduce(self, x, split, op):
+        return self.mesh.all_reduce(x, MP_AXIS, op) if split else x
+
+    def rows_sum(self, x, dims):
+        """x summed over ``dims`` and over every row: this rank's partial
+        sums, all-reduced over mp where rows are split."""
+        return self._reduce(x.sum(dims), self.split_r, "sum")
+
+    def cols_sum(self, x, dims):
+        """x summed over ``dims`` and over every column (as rows_sum)."""
+        return self._reduce(x.sum(dims), self.split_m, "sum")
+
+    def cols_min(self, x):
+        return self._reduce(x, self.split_m, "min")
+
+    def cols_max(self, x):
+        return self._reduce(x, self.split_m, "max")
+
+    def all_rows(self, x, dim=1):
+        """x with every row, gathered over mp where rows are split."""
+        return self.mesh.all_gather(x, MP_AXIS, dim) if self.split_r else x
+
+    def all_cols(self, x, dim=1):
+        return self.mesh.all_gather(x, MP_AXIS, dim) if self.split_m else x
 
 
 class BayesianTensorFiltering:
@@ -98,9 +182,11 @@ class BayesianTensorFiltering:
                               torch.bfloat16):
             raise ValueError("data_dtype must be None or a torch floating "
                              f"dtype of 16 or 32 bits, got {data_dtype!r}")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh sharding is {_LATER}")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the model's device {self.device} is not this "
+                             f"rank's mesh device {mesh.device}")
         require_full_f32()
         self.nrows = int(nrows)
         self.ncols = int(ncols)
@@ -174,7 +260,12 @@ class BayesianTensorFiltering:
 
         state["nan_fallbacks"] = self._chain_full((), 0.0)
         state["pivot_repairs"] = self._chain_full((), 0.0)
-        self._state = state
+        self._part = _Part(mesh, self.nchains, self.nrows, self.ncols)
+        # the global shape and feasible spec of every state entry
+        self._gshape, self._specs = {}, {}
+        self._state = {}
+        for key, v in state.items():
+            self._put(key, v)
 
     # ------------------------------------------------------------------
     # tensors and init draws
@@ -229,41 +320,91 @@ class BayesianTensorFiltering:
     # re-initialisation after a warm start is assigned (the Poisson
     # example's setup_sampler), each from the next init generator
     def _init_sigma2(self):
-        self._state["sigma2"] = self._init_sigma2_val(self._next_init_gen())
+        self._put("sigma2", self._init_sigma2_val(self._next_init_gen()))
 
     def _init_lam2(self):
         lam2, lam2_a = self._init_lam2_val(self._next_init_gen())
-        self._state["lam2"], self._state["lam2_a"] = lam2, lam2_a
+        self._put("lam2", lam2)
+        self._put("lam2_a", lam2_a)
 
     def _init_Tau2(self):
         t2, c, b, a = self._init_tau2_val(self._next_init_gen())
-        self._state["Tau2"], self._state["Tau2_c"] = t2, c
-        self._state["Tau2_b"], self._state["Tau2_a"] = b, a
+        for key, v in zip(("Tau2", "Tau2_c", "Tau2_b", "Tau2_a"),
+                          (t2, c, b, a)):
+            self._put(key, v)
 
     def _init_W(self):
-        self._state["W"] = self._init_W_val(self._next_init_gen(),
-                                            self._state["sigma2"])
+        self._put("W", self._init_W_val(self._next_init_gen(),
+                                        self._global("sigma2")))
 
     def _init_V(self):
-        self._state["V"] = self._init_V_val(
-            self._next_init_gen(), self._state["lam2"], self._state["Tau2"])
+        self._put("V", self._init_V_val(
+            self._next_init_gen(), self._global("lam2"),
+            self._global("Tau2")))
+
+    # ------------------------------------------------------------------
+    # mesh sharding: explicit per-model partition specs (no heuristics)
+    # ------------------------------------------------------------------
+    def state_partition_specs(self):
+        """Explicit {state key: spec}, a tuple of mesh axis names or None
+        a leading dimension (functionalmf_tpu/models/base.py:516-541).
+        Axis 0 is always chains (dp); W shards rows and V / Tau2 shard
+        columns over mp. Subclasses extend this dict for every state key
+        they add (enforced in _shard_specs)."""
+        dp, mp = DP_AXIS, MP_AXIS
+        return {
+            "sigma2": (dp,), "lam2": (dp,), "lam2_a": (dp,),
+            "nan_fallbacks": (dp,), "pivot_repairs": (dp,),
+            "Tau2": (dp, mp), "Tau2_a": (dp, mp),
+            "Tau2_b": (dp, mp), "Tau2_c": (dp, mp),
+            "W": (dp, mp),   # rows over mp
+            "V": (dp, mp),   # columns over mp
+        }
+
+    def _shard_specs(self):
+        specs = self.state_partition_specs()
+        missing = set(self._state) - set(specs)
+        assert not missing, (
+            f"state keys {sorted(missing)} have no partition spec; extend "
+            f"{type(self).__name__}.state_partition_specs")
+        return specs
+
+    def _put(self, key, value):
+        """Set state entry ``key`` from its global value: this rank keeps
+        its slice."""
+        self._gshape[key] = tuple(value.shape)
+        if self.mesh is None:
+            self._state[key] = value
+            return
+        spec = self.state_partition_specs()[key]
+        self._specs[key] = feasible_spec(self.mesh, spec, tuple(value.shape))
+        self._state[key] = shard_state({key: value}, self.mesh,
+                                       {key: spec})[key]
+        self._shard_specs()
+
+    def _gather(self, local, specs):
+        return (local if self.mesh is None
+                else gather_state(local, self.mesh, specs))
+
+    def _global(self, key):
+        return self._gather({key: self._state[key]}, self._specs)[key]
 
     # ------------------------------------------------------------------
     # state access
     # ------------------------------------------------------------------
     @property
     def state(self):
-        return self._state
+        """The global state dict (under a mesh, gathered on every rank)."""
+        return self._gather(self._state, self._specs)
 
     def _get_var(self, name):
-        v = self._state[name]
+        v = self._global(name)
         if self.nchains == 1:
             v = v[0]
         return v.cpu().numpy()
 
     def _set_var(self, name, value):
-        shape = tuple(self._state[name].shape[1:])
-        self._state[name] = self._chain_broadcast(value, shape)
+        self._put(name, self._chain_broadcast(value, self._gshape[name][1:]))
 
     W = property(lambda s: s._get_var("W"), lambda s, v: s._set_var("W", v))
     V = property(lambda s: s._get_var("V"), lambda s, v: s._set_var("V", v))
@@ -284,11 +425,12 @@ class BayesianTensorFiltering:
         if missing:
             raise KeyError(f"state lacks {sorted(missing)}")
         for key, val in new.items():
-            if key in self._state and val.shape != self._state[key].shape:
+            if key in self._state and tuple(val.shape) != self._gshape[key]:
                 raise ValueError(f"state[{key!r}] has shape "
                                  f"{tuple(val.shape)}, expected "
-                                 f"{tuple(self._state[key].shape)}")
-        self._state = {key: new[key] for key in self._state}
+                                 f"{self._gshape[key]}")
+        for key in list(self._state):
+            self._put(key, new[key])
 
     # ------------------------------------------------------------------
     # prior blocks
@@ -304,10 +446,13 @@ class BayesianTensorFiltering:
         w = self._v_prior_weights(lam2, Tau2)
         return (self.Delta.T * w[..., None, :]) @ self.Delta
 
-    def _sample_v_prior(self, gen, lam2, Tau2):
+    def _sample_v_prior(self, gen, lam2, Tau2, local=False):
         """(nch, m, k*T) ~ N(0, kron(I_k, DtLD)^-1), one (T, T) Cholesky per
-        column with k right-hand sides, Jacobi-equilibrated; embed-major."""
-        nch, m, T, k = self.nchains, self.ncols, self.ndepth, self.nembeds
+        column with k right-hand sides, Jacobi-equilibrated; embed-major.
+        With ``local`` lam2 and Tau2 are this rank's part of the state and
+        so is the draw."""
+        nch, m = Tau2.shape[:2]
+        T, k = self.ndepth, self.nembeds
         DtLD = self._v_prior_dtld(lam2, Tau2)
         d = torch.diagonal(DtLD, dim1=-2, dim2=-1)
         dinv = torch.rsqrt(torch.where(d > 0, d, torch.ones_like(d)))
@@ -315,50 +460,87 @@ class BayesianTensorFiltering:
         L = cholesky_psd(Qe, eps=self.linalg_opts["force_psd_eps"],
                          attempts=self.linalg_opts["force_psd_attempts"]
                          if self.linalg_opts["force_psd"] else 0)
-        z = torch.randn((nch, m, T, k), generator=gen, device=self.device)
+        z = torch.randn((self.nchains, self.ncols, T, k), generator=gen,
+                        device=self.device)
+        if local:
+            z = self._part.take(z, "cm")
         x = torch.linalg.solve_triangular(L.mT, z, upper=True)
         x = x * dinv[..., None]
         return x.transpose(-1, -2).reshape(nch, m, k * T)
 
     def _deltas(self, V):
-        """Delta V_j per chain and column: (nch, m, nD, k)."""
-        return torch.einsum("dt,cjtk->cjdk", self.Delta, V)
+        """Delta V_j per chain and column: (nch, m, nD, k). Each chain's
+        block is contiguous in (nD, m, k) order, the einsum's layout of one
+        chain, so that a chain's sums do not depend on how many chains a
+        rank holds (the einsum interleaves the chains along nD)."""
+        d = torch.einsum("dt,cjtk->cjdk", self.Delta, V)
+        return d.transpose(1, 2).contiguous().transpose(1, 2)
+
+    @property
+    def _wmask_rows(self):
+        """The lower-triangular mask of this rank's rows of W."""
+        return self._wmask[self._part.r]
 
     def _update_sigma2(self, state, gen):
-        W = state["W"] * self._wmask
-        sq = (W * W).sum((-2, -1))
-        g = standard_gamma(gen, self.sigma2_a + self._w_len / 2.0,
-                           (self.nchains,), device=self.device)
+        W = state["W"] * self._wmask_rows
+        sq = self._part.rows_sum(W * W, (-2, -1))
+        g = self._part.take(standard_gamma(
+            gen, self.sigma2_a + self._w_len / 2.0, (self.nchains,),
+            device=self.device), "c")
         prec = g / (self.sigma2_b + sq / 2.0)
         return dict(state, sigma2=1.0 / prec)
 
     def _update_tau2(self, state, gen):
         deltas = self._deltas(state["V"])
         deltas_sq = (deltas * deltas).sum(-1)
+        # resample_tau2_ladder's draws, at the global ladder shape
+        shape = (self.nchains, self.ncols, self.nD)
+        gamma = standard_gamma(gen, (self.nembeds + 1) / 2.0, shape,
+                               device=self.device)
+        expo = _exponential(gen, (3,) + shape, self.device)
         t2, c, b, a = resample_tau2_ladder(
             gen, deltas_sq, state["lam2"][:, None, None], state["Tau2"],
             state["Tau2_c"], state["Tau2_b"], state["Tau2_a"],
-            self.nembeds, self.stability)
+            self.nembeds, self.stability,
+            noise=(self._part.take(gamma, "cm"),
+                   self._part.take(expo, ".cm")))
         return dict(state, Tau2=t2, Tau2_c=c, Tau2_b=b, Tau2_a=a)
+
+    def _resample_lam2(self, gen, s, lam2_a):
+        """resample_lam2 with its draws taken at the global chain shape."""
+        shape = (self.nchains,)
+        gamma = standard_gamma(gen, lam2_shape(self.nD, self.ncols,
+                                               self.nembeds),
+                               shape, device=self.device)
+        expo = _exponential(gen, shape, self.device)
+        return resample_lam2(gen, s, lam2_a, self.nD, self.ncols,
+                             self.nembeds,
+                             noise=(self._part.take(gamma, "c"),
+                                    self._part.take(expo, "c")))
 
     def _update_lam2(self, state, gen):
         deltas = self._deltas(state["V"])
         tau2 = torch.clamp(state["Tau2"], self.stability,
                            1 / self.stability)[..., None]
-        s = (deltas * deltas / tau2).sum((1, 2, 3))
-        lam2, lam2_a = resample_lam2(gen, s, state["lam2_a"], self.nD,
-                                     self.ncols, self.nembeds)
+        s = self._part.cols_sum(deltas * deltas / tau2, (1, 2, 3))
+        lam2, lam2_a = self._resample_lam2(gen, s, state["lam2_a"])
         return dict(state, lam2=lam2, lam2_a=lam2_a)
 
-    @staticmethod
-    def _nan_guard(old_state, new_state, names=("W", "V")):
+    def _nan_guard(self, old_state, new_state, names=("W", "V")):
         """Keep the previous draw of a chain whose update came back
-        non-finite, and count the event in nan_fallbacks (per chain)."""
+        non-finite, and count the event in nan_fallbacks (per chain).
+        Where W's rows or V's columns are split over mp, a chain's verdict
+        is the MIN over the mp line, so every rank keeps or drops the
+        chain together."""
         state = dict(new_state)
         fallbacks = state["nan_fallbacks"]
+        p = self._part
         for key in names:
             new = new_state[key]
             ok = torch.isfinite(new).reshape(new.shape[0], -1).all(-1)
+            if {"W": p.split_r, "V": p.split_m}.get(key, False):
+                ok = p.mesh.all_reduce(ok.to(torch.int32), MP_AXIS,
+                                       "min").bool()
             okb = ok.reshape((-1,) + (1,) * (new.dim() - 1))
             state[key] = torch.where(okb, new, old_state[key])
             fallbacks = fallbacks + (~ok).to(fallbacks.dtype)
@@ -511,7 +693,17 @@ class BayesianTensorFiltering:
           launch of the process on the host: do not time a run after it.
         * ``key``: an integer in place of the model's seed for this run's
           sweeps and hook.
+
+        Under a mesh every rank calls this with the same arguments; the
+        hooks, ``collect_data_keys``, checkpoints and the profiler wait
+        (they raise NotImplementedError).
         """
+        if self.mesh is not None:
+            self._check_mesh_run(callback=callback,
+                                 traced_callback=traced_callback,
+                                 collect_data_keys=tuple(collect_data_keys),
+                                 checkpoint_path=checkpoint_path,
+                                 resume=resume, profile_dir=profile_dir)
         if callback is not None and traced_callback is not None:
             raise ValueError("pass either callback (host) or traced_callback "
                              "(device), not both")
@@ -554,9 +746,13 @@ class BayesianTensorFiltering:
 
         def flush():
             if pending:
-                chunks.append({k: torch.stack([p[k] for p in pending],
-                                              0).float().cpu().numpy()
-                               for k in pending[0]})
+                stacked = {k: torch.stack([p[k] for p in pending], 0)
+                           for k in pending[0]}
+                # the draws of every rank, once a chunk (sample axis first)
+                stacked = self._gather(stacked, {
+                    k: (None,) + self._specs.get(k, ()) for k in stacked})
+                chunks.append({k: v.float().cpu().numpy()
+                               for k, v in stacked.items()})
                 pending.clear()
             if checkpoint_path:
                 self._save_checkpoint(checkpoint_path, state, step,
@@ -601,6 +797,13 @@ class BayesianTensorFiltering:
         self._report_run_health(results, verbose)
         return results
 
+    def _check_mesh_run(self, **opts):
+        """The run_gibbs options that wait under a mesh raise."""
+        for name, val in opts.items():
+            if val:
+                raise NotImplementedError(MESH_LATER.format(
+                    f"run_gibbs({name}=) under a mesh"))
+
     @contextlib.contextmanager
     def _profiled(self, profile_dir):
         """torch.profiler around the block; the trace goes to
@@ -629,8 +832,8 @@ class BayesianTensorFiltering:
         return results
 
     def _report_run_health(self, results, verbose):
-        fb = self._state["nan_fallbacks"].cpu().numpy()
-        pr = self._state["pivot_repairs"].cpu().numpy()
+        fb = self._global("nan_fallbacks").cpu().numpy()
+        pr = self._global("pivot_repairs").cpu().numpy()
         results["nan_fallbacks"] = fb.reshape(self.nchains)
         results["pivot_repairs"] = pr.reshape(self.nchains)
         if float(fb.sum()) > 0 and verbose is not False:
@@ -685,7 +888,7 @@ class BayesianTensorFiltering:
             hyperparams["lam2"] = lam2
 
     def _set_hyperparameters(self, hyperparams):
-        self._state["lam2"] = self._chain_full((), hyperparams["lam2"])
+        self._put("lam2", self._chain_full((), hyperparams["lam2"]))
 
     def select_hyperparams_DIC(self, data, verbose=True, **kwargs):
         """DIC grid search (functionalmf_tpu/models/base.py:941-977): one

@@ -5,7 +5,8 @@ Counterpart of functionalmf_tpu/models/binomial.py. One vectorised
 ``polya_gamma`` call draws the latent omega of every cell of every chain,
 and the pseudo-data kappa = Y - N/2 (factor.py:439, 444) feeds the batched
 Gaussian W and V updates as (weight, weighted target) pairs, without a
-division by nu2 = 1 / omega.
+division by nu2 = 1 / omega. Under a mesh the PG draw is taken at the
+global shape on every rank of an mp line (models/gaussian.py).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from functionalmf_tpu_torch.models.gaussian import (
     GaussianBayesianTensorFiltering)
+from functionalmf_tpu_torch.ops.gamma import draw_gamma_mt_noise
 from functionalmf_tpu_torch.ops.polyagamma import polya_gamma
 
 __all__ = ["BinomialBayesianTensorFiltering"]
@@ -30,8 +32,8 @@ class BinomialBayesianTensorFiltering(GaussianBayesianTensorFiltering):
         self.pg_seed = pg_seed  # parity kwarg; draws come from the model seed
         # nu2 is the (n, m, T) latent variance 1 / omega of every chain
         # (factor.py:433-435), resampled every sweep; inf where omega is 0
-        self._state["nu2"] = self._chain_full(
-            (self.nrows, self.ncols, self.ndepth), 0.0)
+        self._put("nu2", self._chain_full(
+            (self.nrows, self.ncols, self.ndepth), 0.0))
         self.sample_nu2 = True
 
     # ------------------------------------------------------------------
@@ -55,14 +57,27 @@ class BinomialBayesianTensorFiltering(GaussianBayesianTensorFiltering):
         updates see weight omega and weighted target omega * kappa / omega.
         ``g`` and ``z`` inject ``polya_gamma``'s noise.
         """
-        Mu = torch.einsum("cnk,cmtk->cnmt", state["W"], state["V"])
+        Mu = self._whole_mu(state)
+        # polya_gamma's draws, for every chain: the gamma sampler's, then
+        # the normals
+        p, gnoise = self._part, None
+        full = (self.nchains,) + tuple(Mu.shape[1:])
+        if g is None:
+            x, u, ub = draw_gamma_mt_noise(gen, (self.pg_num_terms,) + full,
+                                           device=self.device)
+            gnoise = (p.take(x, "..c"), p.take(u, "..c"), p.take(ub, ".c"))
+        if z is None:
+            z = p.take(torch.randn(full, generator=gen, device=self.device),
+                       "c")
         omega = polya_gamma(gen, (N * mask).expand_as(Mu), Mu,
-                            num_terms=self.pg_num_terms, g=g, z=z)
+                            num_terms=self.pg_num_terms, g=g, z=z,
+                            gamma_noise=gnoise)
         pos = omega > 0
         nu2 = torch.where(pos, 1.0 / torch.where(pos, omega, 1.0), torch.inf)
         w8 = omega * mask
         wy = ((Y - N / 2.0) * mask).expand_as(Mu)
-        return dict(state, nu2=nu2), w8, wy
+        # every cell on every rank of an mp line; the state keeps the rows
+        return dict(state, nu2=p.take(nu2, ".r")), w8, wy
 
     def _pg_sweep(self, state, pdata, gen, Y, N):
         """The PG draw, then the base order with the Gaussian updates at

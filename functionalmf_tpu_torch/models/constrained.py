@@ -67,6 +67,31 @@ likelihood gets the stored leaves and upcasts what it reads
 (``Y[row].float()``). With a cellfn the kernels read float32 ``y``: one
 float32 copy is made of each prepared tensor, when the first sweep reads
 it, and kept beside the stored one; nothing is converted at a launch.
+
+Under a device mesh (``mesh=``, models/base.py) the chains run over dp
+and, with a cellfn, W's rows and V's columns over mp; each rank keeps
+its row slab and its column slab of the data and of the EP centres
+(``prepare_data``, ``_init_ep``), and the fused kernels run at the
+rank's local shapes. Every draw is taken at its global shape and sliced.
+The collectives, site by site (each only where its axis is split):
+
+* W update: all-gather V over mp (its columns) for the constraint
+  matrix and the candidates' cells; the rows are local.
+* V update, every schedule: all-gather W over mp (its rows) for the EP
+  terms, the constraint operator and the candidates' cells; the
+  columns are local.
+* scale moves: all-gather W over mp once; the V prior sums and every
+  full-tensor log-likelihood of the slice targets are all-reduce SUM
+  over mp, the brackets over the curve constraints all-reduce MIN / MAX,
+  so that every rank of a line takes the same branch. The row
+  constraints' brackets come from the gathered W, whole on every rank.
+* the prior sweep's (models/base.py): sigma2, lam2 and the non-finite
+  guard.
+
+The loops that end on a host read, the shrink method's (samplers/
+gass.py) and the jitter ladder's (``cholesky_psd``), hold no collective,
+so ranks may run them a different number of times. Without a cellfn only
+dp is supported (mp > 1 raises).
 """
 from __future__ import annotations
 
@@ -77,15 +102,16 @@ import numpy as np
 import torch
 
 from functionalmf_tpu_torch._runtime import tree_leaves, tree_map
-from functionalmf_tpu_torch.models.base import BayesianTensorFiltering
+from functionalmf_tpu_torch.models.base import (MESH_LATER,
+                                                BayesianTensorFiltering)
 from functionalmf_tpu_torch.ops.fused_ll import (
     KERNEL_CELLS, as_cellfn, ep_log_density, fused_col_block_ll_batched,
     fused_row_ll_batched)
 from functionalmf_tpu_torch.ops.mvn import (
     _cho_solve, _solve_lt, cholesky_psd, sample_mvn_from_precision)
+from functionalmf_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS
 from functionalmf_tpu_torch.samplers.gass import (
     draw_gass_noise, draw_gass_shrink_noise, gass, gass_shrink)
-from functionalmf_tpu_torch.samplers.horseshoe import resample_lam2
 from functionalmf_tpu_torch.samplers.slice1d import shrink_slice_1d
 
 __all__ = ["ConstrainedNonconjugateBayesianTensorFiltering",
@@ -135,8 +161,16 @@ class _Phase:
     CA_out: torch.Tensor     # (nblk, Jb, T) the same rows out of block
     CC_pad: torch.Tensor     # (nblk, Jb) offsets; padded rows 0 >= -1
     pair_chain: torch.Tensor  # (P,) int32, P = nchains * ncols * nblk
-    pair_col: torch.Tensor
-    pair_t0: torch.Tensor
+    pair_col: torch.Tensor    # (this rank's chains and columns, local
+    pair_t0: torch.Tensor     # indices, under a mesh)
+
+
+class _Slabs:
+    """The prepared data under a mesh: this rank's rows (nr, m, T) and
+    its columns (n, nm, T), each contiguous."""
+
+    def __init__(self, rows, cols):
+        self.rows, self.cols = rows, cols
 
 
 class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
@@ -187,6 +221,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                 "simultaneously, which is only an exact Gibbs kernel "
                 "for likelihoods that factorize over the depth axis — "
                 "pass loglikelihood_cells")
+        mesh = kwargs.get("mesh")
+        if (mesh is not None and not has_cellfn
+                and mesh.size(MP_AXIS) > 1):
+            raise NotImplementedError(MESH_LATER.format(
+                "mp > 1 without a loglikelihood_cellfn"))
+        # read by state_partition_specs while the base class places state
+        self._has_row_constraints = Row_constraints is not None
         super().__init__(nrows, ncols, ndepth, **kwargs)
         self.loglikelihood = loglikelihood
         self.loglikelihood_cells = loglikelihood_cells
@@ -209,7 +250,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         self.gass_method = gass_method
         self.v_schedule = v_schedule
         self.v_block_size = None if v_block_size is None else int(v_block_size)
-        self._y32 = (None, None)     # (prepared tensor, its float32 copy)
+        self._y32 = []      # (prepared tensor, its float32 copy) pairs
 
         Constraints = np.asarray(Constraints, dtype=np.float32)
         if v_schedule == "redblack":
@@ -225,17 +266,16 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         # Row_constraints live in the state dict, with a chain axis: a hook
         # rewrites them every sweep (the dose-response U step) and
         # interop carries them like every other entry
-        self._has_row_constraints = Row_constraints is not None
         if self._has_row_constraints:
             RC = np.asarray(Row_constraints, dtype=np.float32)
             if RC.ndim not in (2, 3) or RC.shape[-1] != self.nembeds + 1:
                 raise ValueError(
                     "Row_constraints must be (nR, nembeds + 1) rows [A | c], "
                     f"got shape {RC.shape}")
-            self._state["Row_constraints"] = self._chain_broadcast(
-                RC, RC.shape[-2:])
+            self._put("Row_constraints",
+                      self._chain_broadcast(RC, RC.shape[-2:]))
 
-        nch, n = self.nchains, self.nrows
+        nch, n = self._part.nc, self._part.nr
         self._row_chain = torch.arange(
             nch, dtype=torch.int32, device=self.device).repeat_interleave(n)
         self._row_idx = torch.arange(
@@ -281,8 +321,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         """EP centring (constrained.py:294-315): float32 host copies, the
         overconfidence warning, and the device tensors the updates read:
         ``_ep`` = (mu, sig) as the kernels' extras, (n, m, T) each (empty
-        without EP), and the masked precisions Sinv2 and Mu0 * Sinv2."""
-        self._ep = ()
+        without EP), and the masked precisions Sinv2 and Mu0 * Sinv2.
+        The W update reads this rank's rows of them (``_ep_r``,
+        ``_ep_prec_r``), the V update its columns (``_ep_m``,
+        ``_ep_prec_m``): the same tensors without a mesh, contiguous
+        slabs made once with one."""
+        self._ep = self._ep_r = self._ep_m = ()
+        self._ep_prec_r = self._ep_prec_m = ()
         if ep_approx is None:
             self.Mu_ep = self.Sigma_ep = None
             return
@@ -308,12 +353,20 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         mu, sig = self._t(self.Mu_ep), self._t(self.Sigma_ep)
         self._ep = (mu, sig)
         nan = torch.isnan(mu)
-        self._ep_sinv2 = torch.where(nan, 0.0, 1.0 / (sig * sig))
-        self._ep_mu_sinv2 = torch.where(nan, 0.0, mu) * self._ep_sinv2
+        sinv2 = torch.where(nan, 0.0, 1.0 / (sig * sig))
+        prec = (sinv2, torch.where(nan, 0.0, mu) * sinv2)
+        p = self._part
+        rows = (lambda e: e[p.r].contiguous()) if p.split_r else (lambda e: e)
+        cols = ((lambda e: e[:, p.m].contiguous()) if p.split_m
+                else (lambda e: e))
+        self._ep_r, self._ep_m = tuple(map(rows, self._ep)), \
+            tuple(map(cols, self._ep))
+        self._ep_prec_r = tuple(map(rows, prec))
+        self._ep_prec_m = tuple(map(cols, prec))
 
     # ------------------------------------------------------------------
     def _build_phase(self, starts, size):
-        T, m, nch = self.ndepth, self.ncols, self.nchains
+        T, m, nch = self.ndepth, self._part.nm, self._part.nc
         nblk = len(starts)
         t_mask = np.ones(T, np.float32)
         for s in starts:
@@ -358,11 +411,33 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                              "constructor to be updatable")
         self._set_var("Row_constraints", value)
 
+    def state_partition_specs(self):
+        specs = super().state_partition_specs()
+        if self._has_row_constraints:
+            # a small (nR, k+1) matrix read whole by every row update
+            specs["Row_constraints"] = (DP_AXIS,)
+        return specs
+
     def prepare_data(self, data):
         """The data on the model's device, stored in ``data_dtype``
         (float32 unless given). With a cellfn: one (n, m, T) or
-        (n, m, T, 1) tensor. Without: any pytree of arrays (a dict, tuple
-        or list, or one array), as the user's likelihood reads it."""
+        (n, m, T, 1) tensor; under a mesh, this rank's row and column
+        slabs of it (``_Slabs``). Without: any pytree of arrays (a dict,
+        tuple or list, or one array), as the user's likelihood reads it."""
+        y = self._prepare_whole(data)
+        if self.mesh is None or self.loglikelihood_cellfn is None:
+            return y
+        p = self._part
+        return _Slabs(y[p.r].contiguous() if p.split_r else y,
+                      y[:, p.m].contiguous() if p.split_m else y)
+
+    @staticmethod
+    def _rows_cols(y):
+        """(rows, columns) of the prepared data: both ``y`` itself without
+        a mesh."""
+        return (y.rows, y.cols) if isinstance(y, _Slabs) else (y, y)
+
+    def _prepare_whole(self, data):
         dt = self.data_dtype or self.dtype
 
         def leaf(x):
@@ -387,14 +462,17 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         the one copy made of a prepared tensor stored in another dtype."""
         if y.dtype == torch.float32:
             return y
-        if self._y32[0] is not y:
-            self._y32 = (y, y.float())
-        return self._y32[1]
+        for src, copy in self._y32:
+            if src is y:
+                return copy
+        # a row and a column slab under a mesh: two copies at most
+        self._y32 = self._y32[-1:] + [(y, y.float())]
+        return self._y32[-1][1]
 
     def _chunk(self, items, per_item):
         """Items a lifted likelihood call: a pure function of the shapes."""
         return max(1, min(items, _CHUNK_ELEMS
-                          // max(1, per_item * self.nchains)))
+                          // max(1, per_item * self._part.nc)))
 
     def _data_work(self, pdata):
         """Data elements of one (row, column, time) cell: the largest data
@@ -407,10 +485,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
     # W update: batched GASS over (chain, row)
     # ------------------------------------------------------------------
     def _update_W_gass(self, state, y, gen):
-        nch, n, m, T, k = (self.nchains, self.nrows, self.ncols, self.ndepth,
-                           self.nembeds)
+        """GASS over this rank's (chain, row) pairs; V whole (all-gathered
+        over mp where its columns are split)."""
+        p = self._part
+        nch, n, m, T, k = p.nc, p.nr, self.ncols, self.ndepth, self.nembeds
         B = nch * n
-        V = state["V"]
+        V = p.all_cols(state["V"])
+        y = self._rows_cols(y)[0]
         # constraints from the opposite embedding, shared by the rows of a
         # chain up to the row's dim mask: A[(col, j), a] = sum_t CA[j, t]
         # V[col, t, a]; the Row_constraints rows [A | c] follow them
@@ -421,10 +502,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             RC = state["Row_constraints"]                  # (nch, nR, k+1)
             A_base = torch.cat([A_base, RC[:, :, :k]], dim=1)
             c = torch.cat([c, RC[:, :, k].repeat_interleave(n, dim=0)], dim=1)
-        dmask = self._wmask.expand(nch, n, k).reshape(B, k)
+        dmask = self._wmask_rows.expand(nch, n, k).reshape(B, k)
 
         L, mu_all = self._w_proposal(V, state["sigma2"])
-        v_all = sample_mvn_from_precision(gen, L, chol_factor=True)
+        # the proposal's normals at the global (chain, row) shape
+        z = p.take(torch.randn((self.nchains, self.nrows, k), generator=gen,
+                               device=self.device), "cr")
+        v_all = sample_mvn_from_precision(gen, L, chol_factor=True, z=z)
         v_all = v_all.reshape(B, k) * dmask
 
         def Af(Y):                           # (B, G, k) -> (B, G, m*J + nR)
@@ -437,7 +521,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         else:
             bt = V.reshape(nch, m * T, k)
             y2 = self._f32(y).reshape(n, m * T)
-            extras = tuple(e.reshape(n, m * T) for e in self._ep)
+            extras = tuple(e.reshape(n, m * T) for e in self._ep_r)
             cellfn = self.loglikelihood_cellfn
 
             def loglik(cands):               # (B, G, k) -> (B, G)
@@ -446,18 +530,18 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                                             self._row_idx, cellfn, extras)
 
         x_new = self._gass_update(
-            gen, state["W"].reshape(B, k), loglik, Af, c, v=v_all,
-            dim_mask=dmask,
+            gen, state["W"].reshape(B, k), loglik, Af, c,
+            (self.nchains, self.nrows), "cr", v=v_all, dim_mask=dmask,
             mu=None if mu_all is None else mu_all.reshape(B, k))
-        return dict(state, W=x_new.reshape(nch, n, k) * self._wmask)
+        return dict(state, W=x_new.reshape(nch, n, k) * self._wmask_rows)
 
     def _w_loglik_blackbox(self, pdata, V, dmask):
         """The W update's candidate log-likelihoods through the user's
         function (constrained.py:498-507): ``user_ll(data, tau_g, w_g, V,
         row=i)`` less the EP log-density of row i, lifted over candidates,
         rows (in chunks) and chains."""
-        nch, n, m, T, k = (self.nchains, self.nrows, self.ncols, self.ndepth,
-                           self.nembeds)
+        nch, n, m, T, k = (self._part.nc, self.nrows, self.ncols,
+                           self.ndepth, self.nembeds)
         user_ll, ep = self.loglikelihood, self._ep
         rows = torch.arange(n, device=self.device)
         work = m * T * self._data_work(pdata)
@@ -484,16 +568,25 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
 
         return loglik
 
-    def _gass_update(self, gen, x, loglik, A, c, **kw):
+    def _gass_update(self, gen, x, loglik, A, c, lead, dims, **kw):
         """One batched GASS update of x (B, D) by the model's method; its
-        noise comes from ``gen`` after the proposal draws."""
-        B = x.shape[0]
+        noise comes from ``gen`` after the proposal draws, drawn for the
+        global items ``lead`` (their leading axes, named by ``dims`` as
+        in ``_Part.take``) and cut to this rank's B."""
+        Bg = int(np.prod(lead))
+
+        def local(t):                 # (Bg, ...) -> (B, ...)
+            t = t.reshape(tuple(lead) + t.shape[1:])
+            return self._part.take(t, dims).reshape((-1,) + t.shape[
+                len(lead):])
+
         if self.gass_method == "shrink":
-            log_u, phi, u = draw_gass_shrink_noise(gen, B, _MAX_SHRINK,
-                                                   self.device)
+            log_u, phi, u = map(local, draw_gass_shrink_noise(
+                gen, Bg, _MAX_SHRINK, self.device))
             return gass_shrink(x, loglik, A, c, log_u=log_u, phi=phi, u=u,
                                **kw)[0]
-        log_u, gumbel = draw_gass_noise(gen, B, self.gass_ngrid, self.device)
+        log_u, gumbel = map(local, draw_gass_noise(gen, Bg, self.gass_ngrid,
+                                                   self.device))
         return gass(x, loglik, A, c, log_u=log_u, gumbel=gumbel, **kw)[0]
 
     def _w_proposal(self, V, sigma2):
@@ -502,7 +595,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         (None without EP, where Q = I / sigma2). With EP, the GLS
         Gaussian: Q = sum_x Sinv2[i, x] V[x] V[x]^T on the row's active
         dims + I / sigma2, mean Q^-1 sum_x (Mu0 Sinv2)[i, x] V[x]."""
-        nch, n, k = self.nchains, self.nrows, self.nembeds
+        nch, n, k = self._part.nc, self._part.nr, self.nembeds
         eye = torch.eye(k, device=self.device)
         prior = eye / sigma2[:, None, None, None]            # (nch, 1, k, k)
         if not self._ep:
@@ -513,12 +606,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                                 eps=opts["force_psd_eps"],
                                 attempts=opts["force_psd_attempts"]
                                 if opts["force_psd"] else 0), None
-        mask = self._wmask
+        mask = self._wmask_rows
         Vf = V.reshape(nch, -1, k)
-        s2 = self._ep_sinv2.reshape(n, -1)
+        sinv2, mu_sinv2 = self._ep_prec_r
+        s2 = sinv2.reshape(n, -1)
         Q = (torch.einsum("ix,cxa,cxb->ciab", s2, Vf, Vf)
              * mask[:, :, None] * mask[:, None, :] + prior)
-        mu_part = torch.einsum("ix,cxa->cia", self._ep_mu_sinv2.reshape(n, -1),
+        mu_part = torch.einsum("ix,cxa->cia", mu_sinv2.reshape(n, -1),
                                Vf) * mask
         L = self._chol(Q)
         return L, _cho_solve(L, mu_part)
@@ -539,7 +633,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         W: (nch, n, k) masked; cands: (P, G, size, k). Returns (P, G)."""
         return fused_col_block_ll_batched(
             cands.contiguous(), W, self._f32(y), ph.pair_chain, ph.pair_col,
-            ph.pair_t0, self.loglikelihood_cellfn, self._ep)
+            ph.pair_t0, self.loglikelihood_cellfn, self._ep_m)
 
     def _v_loglik_blackbox(self, pdata, W, X, ph):
         """A V round's candidate log-likelihoods through the user's
@@ -554,8 +648,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
           tau_g, W, V_g, col=j)`` (constrained.py:767-791).
 
         Each less the EP log-density over the cells it covers."""
-        nch, n, m, T, k = (self.nchains, self.nrows, self.ncols, self.ndepth,
-                           self.nembeds)
+        nch, n, m, T, k = (self._part.nc, self.nrows, self.ncols,
+                           self.ndepth, self.nembeds)
         nblk, size = len(ph.starts), ph.size
         user_ll, user_blk, user_cells = (
             self.loglikelihood, self.loglikelihood_block,
@@ -625,13 +719,14 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         return loglik
 
     def _v_ep_terms(self, W):
-        """The EP Gram and moment of every (column, t) given W
-        (constrained.py:633-640): G (nch, m, T, k, k) and mu_part
-        (nch, m, T, k); (None, None) without EP."""
+        """The EP Gram and moment of every (column, t) of this rank given
+        the whole W (constrained.py:633-640): G (nch, m, T, k, k) and
+        mu_part (nch, m, T, k); (None, None) without EP."""
         if not self._ep:
             return None, None
-        G = torch.einsum("ijt,cia,cib->cjtab", self._ep_sinv2, W, W)
-        mu_part = torch.einsum("ijt,cia->cjta", self._ep_mu_sinv2, W)
+        sinv2, mu_sinv2 = self._ep_prec_m
+        G = torch.einsum("ijt,cia,cib->cjtab", sinv2, W, W)
+        mu_part = torch.einsum("ijt,cia->cjta", mu_sinv2, W)
         return G, mu_part
 
     def _block_gaussian(self, DtLD, G, mu_part, X_out, tidx, z):
@@ -668,15 +763,19 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         return mu_b.reshape(lead + (-1,)), v_b.reshape(lead + (-1,))
 
     def _phase_update(self, X, W, DtLD, G, mu_part, y, ph, gen):
-        nch, n, m, k = self.nchains, self.nrows, self.ncols, self.nembeds
+        """One round over this rank's (chain, column, block) items; W
+        whole, X, DtLD, G, mu_part and y this rank's columns."""
+        nch, m, k = self._part.nc, self._part.nm, self.nembeds
         nblk, size = len(ph.starts), ph.size
         D = size * k
         B = nch * m * nblk
         X_out = X * ph.t_mask[:, None]
         tidx = ph.tidx
 
-        z = torch.randn((nch, m, nblk, size, k), generator=gen,
-                        device=self.device)
+        # the blocks' normals at the global (chain, column) shape
+        z = self._part.take(torch.randn(
+            (self.nchains, self.ncols, nblk, size, k), generator=gen,
+            device=self.device), "cm")
         mu_b, v_b = self._block_gaussian(DtLD, G, mu_part, X_out, tidx, z)
         mu_b, v_b = mu_b.reshape(B, D), v_b.reshape(B, D)
 
@@ -701,17 +800,22 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                                            cands.reshape(B, G, size, k))
 
         Xb_cur = X[:, :, tidx, :].reshape(B, D)
-        Xb_new = self._gass_update(gen, Xb_cur, loglik, A_op, c_all, v=v_b,
-                                   mu=mu_b)
+        Xb_new = self._gass_update(gen, Xb_cur, loglik, A_op, c_all,
+                                   (self.nchains, self.ncols, nblk), "cm",
+                                   v=v_b, mu=mu_b)
         X = X.clone()
         X[:, :, tidx, :] = Xb_new.reshape(nch, m, nblk, size, k)
         return X
 
     def _update_V_gass(self, state, y, gen):
-        W = (state["W"] * self._wmask).contiguous()
+        """Every round over this rank's columns; W whole (all-gathered
+        over mp where its rows are split)."""
+        W = (self._part.all_rows(state["W"]) * self._wmask).contiguous()
         DtLD = self._v_prior_dtld(state["lam2"], state["Tau2"])
         G, mu_part = self._v_ep_terms(W)
         X = state["V"]
+        if isinstance(y, _Slabs):
+            y = y.cols
         for ph in self._phases:
             X = self._phase_update(X, W, DtLD, G, mu_part, y, ph, gen)
         return dict(state, V=X)
@@ -720,12 +824,16 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
     # exact scale moves (ASIS re-draws of lam2 / sigma2, collapsed
     # global and per-factor W <-> V rebalance)
     # ------------------------------------------------------------------
-    def _scale_bounds(self, vals, cs):
+    def _scale_bounds(self, vals, cs, over_cols=False):
         """Feasible interval (s_lo, s_hi) of a global rescale tau -> s tau
-        over the last axis: s*v >= c for every constraint value v."""
+        over the last axis: s*v >= c for every constraint value v. With
+        ``over_cols`` the values are this rank's columns' and the extremes
+        are all-reduced (MAX, MIN) over mp."""
         ratio = cs / torch.where(vals == 0, 1.0, vals)
         s_lo = torch.where(vals > 0, ratio, -torch.inf).amax(-1)
         s_hi = torch.where(vals < 0, ratio, torch.inf).amin(-1)
+        if over_cols:
+            s_lo, s_hi = self._part.cols_max(s_lo), self._part.cols_min(s_hi)
         s_lo = torch.clamp(s_lo, min=1e-6) * (1.0 + 1e-6)
         s_hi = torch.clamp(s_hi, max=1e6) * (1.0 - 1e-6)
         return s_lo, s_hi
@@ -735,7 +843,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         k = self.nembeds
         rv = torch.einsum("cnk,cjk->cnj", W, RC[:, :, :k])
         cs = RC[:, None, :, k].expand_as(rv)
-        return rv.reshape(self.nchains, -1), cs.reshape(self.nchains, -1)
+        return rv.reshape(W.shape[0], -1), cs.reshape(W.shape[0], -1)
 
     @staticmethod
     def _bracket_from_scale(s_lo, s_hi):
@@ -756,7 +864,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         """Bracket of factor kk's rebalance: the constraint values are
         affine in s = e^{-x}, rest + s part_kk >= c
         (constrained.py:1192-1210)."""
-        nch, k = self.nchains, self.nembeds
+        nch, k = W.shape[0], self.nembeds
         rvf = torch.einsum("cnk,cjk->cnj", W, RC[:, :, :k])
         pk = W[:, :, kk, None] * RC[:, None, :, kk]
         num = RC[:, None, :, k].expand_as(pk) - (rvf - pk)
@@ -772,7 +880,9 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         """Bracket of the ASIS sigma2 move, x = log sigma2, W scales by
         s = exp((x - x0) / 2): the curve constraints' values ``Av`` (None
         where they form a cone) and the row constraints' both scale with s
-        (constrained.py:1303-1324)."""
+        (constrained.py:1303-1324). Av holds this rank's columns; the row
+        constraints' values, from the whole W, are the same on every rank
+        of an mp line, so the extremes of both reduce over mp at once."""
         if Av is None and RC is None:
             return x0 - 12.0, x0 + 12.0
         vals, cs = [], []
@@ -784,29 +894,45 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             vals.append(rv)
             cs.append(rc)
         s_lo, s_hi = self._scale_bounds(torch.cat(vals, -1),
-                                        torch.cat(cs, -1))
+                                        torch.cat(cs, -1),
+                                        over_cols=Av is not None)
         lo = torch.maximum(x0 + 2.0 * torch.log(s_lo), x0 - 12.0)
         hi = torch.minimum(x0 + 2.0 * torch.log(s_hi), x0 + 12.0)
         return torch.minimum(lo, x0), torch.maximum(hi, x0)
 
+    def _slice_1d(self, x0, logdensity, lo, hi, gen):
+        """shrink_slice_1d of this rank's chains, its draws taken for every
+        chain (an Exp(1) a chain, then 16 uniforms a chain)."""
+        e = torch.empty(self.nchains, device=self.device).exponential_(
+            generator=gen)
+        u = torch.rand((16, self.nchains), generator=gen, device=self.device)
+        return shrink_slice_1d(x0, logdensity, lo, hi, max_shrink=16,
+                               noise=(self._part.take(e, "c"),
+                                      self._part.take(u, ".c")))
+
     def _interweave_scales(self, state, y, gen):
         """functionalmf_tpu/models/constrained.py:1020-1338, every chain
-        at once (per-chain scalars are (nchains,) tensors)."""
-        nch, k = self.nchains, self.nembeds
+        at once (per-chain scalars are (nchains,) tensors). Under a mesh
+        W is gathered whole once; tau, V and the data are this rank's
+        columns, and the column sums reduce over mp."""
+        p = self._part
+        nch, k = p.nc, self.nembeds
         dev = self.device
-        W = state["W"] * self._wmask
+        W_all = p.all_rows(state["W"])            # every row, unmasked
+        W = W_all * self._wmask
         V = state["V"]
         tau = torch.einsum("cnk,cmtk->cnmt", W, V)
         zeros = torch.zeros(nch, device=dev)
         c4 = (slice(None), None, None, None)
         RC = state["Row_constraints"] if self._has_row_constraints else None
+        y = self._rows_cols(y)[1]
 
         if self.sample_W and self.sample_V:
             inv_tau2 = 1.0 / torch.clamp(state["Tau2"], self.stability,
                                          1.0 / self.stability)
             deltas = self._deltas(V)                      # (nch, m, nD, k)
             dq = deltas * deltas * inv_tau2[..., None]
-            Qbar = torch.clamp(dq.sum((1, 2, 3)), min=1e-20)
+            Qbar = torch.clamp(p.cols_sum(dq, (1, 2, 3)), min=1e-20)
             W2 = (W * W).sum((1, 2))
             dW_free, dV_free = collapsed_scale_dims(
                 self._w_len, self.ncols, self.ndepth, k)
@@ -834,16 +960,16 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             lo_c, hi_c = -6.0, 6.0
             if RC is not None:       # W scales by e^{-x}
                 lo_c, hi_c = self._rc_global_bracket(W, RC)
-            x_c, _ = shrink_slice_1d(zeros, logdens_c, lo_c, hi_c, gen)
+            x_c, _ = self._slice_1d(zeros, logdens_c, lo_c, hi_c, gen)
             c_w, c_v = torch.exp(-x_c), torch.exp(x_c)
             W = W * c_w[c4[:3]]
             V = V * c_v[c4]
-            state = dict(state, W=state["W"] * c_w[c4[:3]], V=V)
+            W_all = W_all * c_w[c4[:3]]
             Qbar_cur = torch.exp(2.0 * x_c) * Qbar
 
             if self.factor_rebalance and k > 1:
                 w2k = (W * W).sum(1)                              # (nch, k)
-                qk = torch.clamp(dq.sum((1, 2))
+                qk = torch.clamp(p.cols_sum(dq, (1, 2))
                                  * torch.exp(2.0 * x_c)[:, None], min=1e-20)
                 dwk = self._wmask_np.sum(axis=0)
                 dvk = float(self.ncols * self.ndepth)
@@ -862,8 +988,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                     lo_f, hi_f = -6.0, 6.0
                     if RC is not None:
                         lo_f, hi_f = self._rc_factor_bracket(W, RC, kk)
-                    x_f, _ = shrink_slice_1d(zeros, logdens_f, lo_f, hi_f,
-                                             gen)
+                    x_f, _ = self._slice_1d(zeros, logdens_f, lo_f, hi_f,
+                                            gen)
                     f_w, f_v = torch.exp(-x_f), torch.exp(x_f)
                     onehot = eye_k[kk]
                     fw_k = 1.0 + (f_w[:, None] - 1.0) * onehot    # (nch, k)
@@ -872,16 +998,16 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                     V = V * fv_k[:, None, None, :]
                     w2k = w2k * fw_k * fw_k
                     qk = qk * fv_k * fv_k
-                    state = dict(state, W=state["W"] * fw_k[:, None, :], V=V)
+                    W_all = W_all * fw_k[:, None, :]
                 Qbar_cur = qk.sum(-1)
+            state = dict(state, W=p.take(W_all, ".r"), V=V)
 
             # redraw the collapsed scales at the new split
             if self.sample_sigma2:
                 state = self._update_sigma2(state, gen)
             if self.sample_lam2:
-                lam2_new, lam2_a_new = resample_lam2(
-                    gen, Qbar_cur, state["lam2_a"], self.nD, self.ncols,
-                    self.nembeds)
+                lam2_new, lam2_a_new = self._resample_lam2(
+                    gen, Qbar_cur, state["lam2_a"])
                 state = dict(state, lam2=lam2_new, lam2_a=lam2_a_new)
 
         # all offsets 0: the feasible set is a cone, invariant under s > 0
@@ -892,7 +1018,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             Av = torch.einsum("jt,cnmt->cnmj", self.Constraints_A,
                               tau).reshape(nch, -1)
             cs_curve = self.Constraints_C.repeat(
-                self.nrows * self.ncols).expand(nch, -1)
+                self.nrows * p.nm).expand(nch, -1)
         # the full-tensor likelihood of the slice targets: the cellfn
         # (terms of y alone are constant in the rescale), else the user's
         # function on the rescaled tau, W and V (constrained.py:1256-1266)
@@ -901,7 +1027,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             y32 = self._f32(y)
 
             def full_ll(tau_s, W_s, V_s):
-                return cellfn(y32[None], tau_s).sum((1, 2, 3))
+                return p.cols_sum(cellfn(y32[None], tau_s), (1, 2, 3))
         else:
             def full_ll(tau_s, W_s, V_s):
                 return torch.func.vmap(
@@ -913,7 +1039,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             if cone:
                 lo_s, hi_s = x0 - 12.0, x0 + 12.0
             else:
-                s_lo, s_hi = self._scale_bounds(Av, cs_curve)
+                s_lo, s_hi = self._scale_bounds(Av, cs_curve, over_cols=True)
                 lo_s = torch.maximum(x0 + 2.0 * torch.log(s_lo), x0 - 12.0)
                 hi_s = torch.minimum(x0 + 2.0 * torch.log(s_hi), x0 + 12.0)
             lo = torch.minimum(torch.clamp(lo_s, min=_LOG_LAM2_MIN), x0)
@@ -925,7 +1051,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                 return (-0.5 * x - torch.exp(-x) * inv_a
                         + full_ll(s[c4] * tau, W, s[c4] * V))
 
-            x_new, _ = shrink_slice_1d(x0, logdens, lo, hi, gen)
+            x_new, _ = self._slice_1d(x0, logdens, lo, hi, gen)
             s = torch.exp(0.5 * (x_new - x0))
             V = V * s[c4]
             tau = tau * s[c4]
@@ -943,7 +1069,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                 return (-a * x - b * torch.exp(-x)
                         + full_ll(s[c4] * tau, s[c4[:3]] * W, V))
 
-            x_new, _ = shrink_slice_1d(x0, logdens, lo, hi, gen)
+            x_new, _ = self._slice_1d(x0, logdens, lo, hi, gen)
             s = torch.exp(0.5 * (x_new - x0))
             state = dict(state, sigma2=torch.exp(x_new),
                          W=state["W"] * s[c4[:3]])
@@ -977,8 +1103,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         V = torch.as_tensor(np.asarray(params.get("V", self.V), np.float32),
                             device=self.device)
         tau = torch.einsum("nk,mtk->nmt", W, V)
-        return float(self.loglikelihood(self.prepare_data(data), tau, W, V,
-                                        row=None, col=None))
+        return float(self.loglikelihood(self._prepare_whole(data), tau, W,
+                                        V, row=None, col=None))
 
     def check_constraints(self, atol=1e-5):
         """Every curve constraint A tau >= c and, where given, every row
@@ -988,13 +1114,14 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
     def _worst_constraint_slack(self):
         """min over chains, cells and constraints of A tau - c (and of
         A_r w_i - c_r, each chain against its own Row_constraints)."""
-        W = self._state["W"].cpu().numpy()
-        V = self._state["V"].cpu().numpy()
+        st = self.state
+        W = st["W"].cpu().numpy()
+        V = st["V"].cpu().numpy()
         tau = np.einsum("cnk,cmtk->cnmt", W, V)
         vals = np.einsum("jt,cnmt->cnmj", self._CA_np, tau)
         worst = float((vals - self._CC_np).min())
         if self._has_row_constraints:
-            RC = self._state["Row_constraints"].cpu().numpy()
+            RC = st["Row_constraints"].cpu().numpy()
             k = self.nembeds
             rvals = (np.einsum("cnk,cjk->cnj", W, RC[:, :, :k])
                      - RC[:, None, :, k])

@@ -14,7 +14,19 @@ as ``nu2_true`` ((nchains, n, m, T)).
 
 The V draw comes from a slightly regularised conditional (a relative
 jitter of 1e-4 on the equilibrated system, ops/banded.py), as in the JAX
-package. Not ported: ``state_partition_specs`` (the device mesh).
+package.
+
+Under a device mesh (``mesh=``, models/base.py) the chains run over dp
+and W's rows and V's columns over mp; every draw is taken at its global
+shape and each rank keeps its part. ``nu2`` is sharded as W's rows
+(``state_partition_specs``), as in the JAX package. The data stays whole
+on every rank. The steps that read every cell, the nu2 draw (and in the
+Polya-Gamma models the PG draw and NegBinom's R moves), run on the whole
+tensor on every rank of an mp line, from W and V all-gathered over mp:
+they draw and sum what the unsharded run does, and need no other
+collective. The W update is row-local (V all-gathered), the V update's
+banded factorisation column-local (W all-gathered); its repair counts
+are all-reduced (SUM) over mp.
 """
 from __future__ import annotations
 
@@ -23,9 +35,10 @@ import torch
 
 from functionalmf_tpu_torch.models.base import BayesianTensorFiltering
 from functionalmf_tpu_torch.ops.banded import (
-    build_v_bands, sample_mvn_block_banded_retiled)
+    build_v_bands, retiled_noise_shape, sample_mvn_block_banded_retiled)
 from functionalmf_tpu_torch.ops.mvn import sample_mvn_from_precision
 from functionalmf_tpu_torch.ops.penalty import penalty_half_bandwidth
+from functionalmf_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS
 from functionalmf_tpu_torch.samplers.conjugate import standard_gamma
 
 __all__ = ["GaussianBayesianTensorFiltering"]
@@ -68,7 +81,7 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         # subclasses' init draws come from the same streams either way
         gen = self._next_init_gen()
         if nu2_true is not None:
-            self._state["nu2"] = nu2_state(nu2_true)
+            self._put("nu2", nu2_state(nu2_true))
             self.sample_nu2 = False
         else:
             self.sample_nu2 = True
@@ -76,16 +89,23 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
                 assert np.ndim(nu2_init) == 0, (
                     "heteroskedastic nu2 must be fixed (nu2_true); sampled "
                     "nu2 is scalar or per-row (nu2_mode)")
-                self._state["nu2"] = nu2_state(nu2_init)
+                self._put("nu2", nu2_state(nu2_init))
             else:
                 # nu2 = 1 / IG-prior draw (factor.py:418-419)
                 shape = row_shape if self.nu2_mode == "row" else ()
                 g = standard_gamma(gen, nu2_a, (self.nchains,) + shape,
                                    device=self.device)
-                self._state["nu2"] = 1.0 / (g / nu2_b)
+                self._put("nu2", 1.0 / (g / nu2_b))
 
     nu2 = property(lambda s: s._get_var("nu2"),
                    lambda s, v: s._set_var("nu2", v))
+
+    def state_partition_specs(self):
+        specs = super().state_partition_specs()
+        # nu2 is (C,), (C, n, 1, 1) or (C, n, m, T): rows align with W's
+        # mp sharding (feasible_spec trims the spec to the array's ndim)
+        specs["nu2"] = (DP_AXIS, MP_AXIS)
+        return specs
 
     # ------------------------------------------------------------------
     # data: NaN-masked sufficient statistics over replicates, computed
@@ -106,8 +126,17 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
 
     def _nu2_cells(self, nu2):
         """nu2 against (nchains, n, m, T) cells: the scalar state (nchains,)
-        gets its cell axes, the other two shapes broadcast as they are."""
-        return nu2[:, None, None, None] if nu2.dim() == 1 else nu2
+        gets its cell axes, the other two shapes broadcast as they are
+        (every row of them, all-gathered over mp where rows are split)."""
+        return (nu2[:, None, None, None] if nu2.dim() == 1
+                else self._part.all_rows(nu2))
+
+    def _whole_mu(self, state):
+        """W V^T over every cell: (nchains, n, m, T), W and V all-gathered
+        over mp where they are split."""
+        p = self._part
+        return torch.einsum("cnk,cmtk->cnmt", p.all_rows(state["W"]),
+                            p.all_cols(state["V"]))
 
     # ------------------------------------------------------------------
     # batched conjugate updates, shared with the Polya-Gamma subclasses
@@ -117,18 +146,25 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         Cholesky (factor.py:313-362).
 
         w8 (nchains, n, m, T): the cells' precision weights (counts / nu2
-        here, omega in the Polya-Gamma models); wy = w8 * target, so that
-        mu_part = X^T wy. ``z`` (nchains, n, k) injects the normal draw.
+        here, omega in the Polya-Gamma models), every row; wy = w8 *
+        target, so that mu_part = X^T wy. ``z`` (nchains, n, k) injects
+        the normal draw. Under a mesh: this rank's rows against V
+        all-gathered over mp.
         """
-        nch, n, k = self.nchains, self.nrows, self.nembeds
-        Vf = state["V"].reshape(nch, -1, k)                    # (nch, P, k)
+        p = self._part
+        nch, n, k = p.nc, p.nr, self.nembeds
+        w8, wy = p.take(w8, ".r"), p.take(wy, ".r")
+        Vf = p.all_cols(state["V"]).reshape(nch, -1, k)        # (nch, P, k)
         VV = (Vf[:, :, :, None] * Vf[:, :, None, :]).reshape(nch, -1, k * k)
         Q_lik = (w8.reshape(nch, n, -1) @ VV).reshape(nch, n, k, k)
-        mask = self._wmask
+        mask = self._wmask_rows
         eye = torch.eye(k, device=self.device)
         Q = (Q_lik * mask[:, :, None] * mask[:, None, :]
              + eye / state["sigma2"][:, None, None, None])
         mu_part = (wy.reshape(nch, n, -1) @ Vf) * mask
+        if z is None:
+            z = p.take(torch.randn((self.nchains, self.nrows, k),
+                                   generator=gen, device=self.device), "cr")
         Wnew = sample_mvn_from_precision(gen, Q, mu_part=mu_part,
                                          equilibrate=True, z=z,
                                          **self.linalg_opts)
@@ -137,8 +173,11 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
     def _v_bands(self, state, w8, wy):
         """The V update's block-banded precision (nchains, m, T, p+1, k, k)
         and mean part (nchains, m, T, k): G[j, t] = sum_i w8[i, j, t] W_i
-        W_i^T on the diagonal blocks, the prior Gram DtLD on the bands."""
-        W = state["W"] * self._wmask
+        W_i^T on the diagonal blocks, the prior Gram DtLD on the bands.
+        Under a mesh: this rank's columns, W all-gathered over mp."""
+        p = self._part
+        w8, wy = p.take(w8, "..m"), p.take(wy, "..m")
+        W = p.all_rows(state["W"]) * self._wmask
         G = torch.einsum("cijt,cia,cib->cjtab", w8, W, W)
         DtLD = self._v_prior_dtld(state["lam2"], state["Tau2"])
         bands = build_v_bands(DtLD, G, penalty_half_bandwidth(self.tf_order))
@@ -155,18 +194,29 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         materially perturbed conditional) also to its ``nan_fallbacks``.
         """
         bands, mu_part = self._v_bands(state, w8, wy)
+        zt = None
+        if z is None:      # the retiled normals, for every chain
+            T, p1, k = bands.shape[-4], bands.shape[-3], bands.shape[-1]
+            zt = self._part.take(torch.randn(
+                (self.nchains, self.ncols)
+                + retiled_noise_shape(T, p1, k, _V_SUPERBLOCK),
+                generator=gen, device=self.device), "cm")
         Vnew, repaired, gersh = sample_mvn_block_banded_retiled(
             gen, bands, mu_part=mu_part, B=_V_SUPERBLOCK, equilibrate=True,
-            return_repairs=True, z=z)
+            return_repairs=True, z=z, z_tiled=zt)
+        p = self._part
         return dict(state, V=Vnew,
-                    pivot_repairs=state["pivot_repairs"] + repaired.sum(-1),
-                    nan_fallbacks=state["nan_fallbacks"] + gersh.sum(-1))
+                    pivot_repairs=state["pivot_repairs"]
+                    + p.cols_sum(repaired, (-1,)),
+                    nan_fallbacks=state["nan_fallbacks"]
+                    + p.cols_sum(gersh, (-1,)))
 
     def _update_nu2(self, state, pdata, gen, gamma=None):
         """The observation noise's inverse-gamma update (factor.py:411-416),
         a shared scalar or one per row. ``gamma`` injects the standard
-        Gamma(nu2_a + nobs / 2, 1) draw, (nchains,) or (nchains, n)."""
-        Mu = torch.einsum("cnk,cmtk->cnmt", state["W"], state["V"])
+        Gamma(nu2_a + nobs / 2, 1) draw, (nchains,) or (nchains, n).
+        Over every cell on every rank; a rank keeps its rows."""
+        Mu = self._whole_mu(state)
         cellerr = (pdata["ysqsum"] - 2.0 * Mu * pdata["ysum"]
                    + pdata["counts"] * Mu * Mu)
         if self.nu2_mode == "row":
@@ -175,11 +225,12 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         else:
             sqerr = cellerr.sum((1, 2, 3))                    # (nch,)
             nobs = pdata["counts"].sum().expand(self.nchains)
-        if gamma is None:
-            gamma = standard_gamma(gen, self.nu2_a + nobs / 2.0)
+        if gamma is None:           # for every chain
+            gamma = self._part.take(
+                standard_gamma(gen, self.nu2_a + nobs / 2.0), "c")
         nu2 = 1.0 / (gamma / (self.nu2_b + sqerr / 2.0))
         if self.nu2_mode == "row":
-            nu2 = nu2[:, :, None, None]
+            nu2 = self._part.take(nu2[:, :, None, None], ".r")
         return dict(state, nu2=nu2)
 
     # ------------------------------------------------------------------

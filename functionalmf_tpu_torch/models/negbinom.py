@@ -7,6 +7,9 @@ Metropolis-Hastings steps on log R, aggregated over ``rdims``, under a
 log-normal prior (factor.py:513-554); every cell's accept/reject decision
 of a step is one masked tensor operation.
 
+Under a mesh the R moves run on the whole tensor on every rank of an mp
+line (models/gaussian.py), R replicated over mp as in the JAX package.
+
 Kept from the reference: the clip of the acceptance log-ratio to
 [-10, 1] (factor.py:542) and the R > 1 acceptance gate (factor.py:547),
 as ``accept_clip`` and ``r_min``. N always derives from the current R.
@@ -18,6 +21,7 @@ import torch
 
 from functionalmf_tpu_torch.models.binomial import (
     BinomialBayesianTensorFiltering)
+from functionalmf_tpu_torch.parallel.mesh import DP_AXIS
 
 __all__ = ["NegativeBinomialBayesianTensorFiltering"]
 
@@ -50,14 +54,20 @@ class NegativeBinomialBayesianTensorFiltering(BinomialBayesianTensorFiltering):
         self.sample_R = R_true is None
         given = R_true if R_true is not None else R_init
         if given is not None:
-            self._state["R"] = self._chain_broadcast(given, self._R_shape)
+            self._put("R", self._chain_broadcast(given, self._R_shape))
         else:
             # R = exp(N(0, rstdev)) + 1 (factor.py:560-563)
             z = torch.randn((self.nchains,) + self._R_shape, generator=gen,
                             device=self.device)
-            self._state["R"] = torch.exp(z * self.rstdev) + 1.0
+            self._put("R", torch.exp(z * self.rstdev) + 1.0)
 
     R = property(lambda s: s._get_var("R"), lambda s, v: s._set_var("R", v))
+
+    def state_partition_specs(self):
+        specs = super().state_partition_specs()
+        # R aggregates over rdims (axes may be size 1); replicated over mp
+        specs["R"] = (DP_AXIS,)
+        return specs
 
     # ------------------------------------------------------------------
     def prepare_data(self, data):
@@ -76,7 +86,7 @@ class NegativeBinomialBayesianTensorFiltering(BinomialBayesianTensorFiltering):
     def draw_R_noise(self, gen):
         """(z, u): the proposals' normals and the acceptance uniforms of
         one R update, (nmetropolis, nchains) + R's shape each, drawn from
-        ``gen`` in this order."""
+        ``gen`` in this order (every chain's, under a mesh too)."""
         shape = (self.nmetropolis, self.nchains) + self._R_shape
         z = torch.randn(shape, generator=gen, device=self.device)
         u = torch.rand(shape, generator=gen, device=self.device)
@@ -87,9 +97,11 @@ class NegativeBinomialBayesianTensorFiltering(BinomialBayesianTensorFiltering):
         ``noise`` injects ``draw_R_noise``'s pair."""
         Y, rm = pdata["Yrep"], pdata["repmask"]
         lo, hi = self.accept_clip
-        z, u = self.draw_R_noise(gen) if noise is None else noise
-        # success probability from the current embeddings (factor.py:519)
-        Mu = torch.einsum("cnk,cmtk->cnmt", state["W"], state["V"])
+        z, u = (self._part.take(t, ".c")
+                for t in (self.draw_R_noise(gen) if noise is None else noise))
+        # success probability from the current embeddings (factor.py:519),
+        # over every cell on every rank of an mp line
+        Mu = self._whole_mu(state)
         P = torch.sigmoid(torch.clamp(Mu, -10, 10))[..., None]
         log1mP = torch.log1p(-P)
         logR = torch.log(state["R"])

@@ -11,7 +11,9 @@ model's device). The model lifts it over the chains with
 ``torch.func.vmap``, so it must be made of operations with a batching
 rule; plain PyTorch on the card, as the JAX path is plain XLA. The
 ellipse runs in the natural (masked) array shapes, and the V prior draws
-come from one batched dense Cholesky.
+come from one batched dense Cholesky. Under a device mesh the chains run
+over dp, every draw taken for every chain; mp > 1 waits (ROADMAP.md,
+Queue 1) and raises.
 """
 from __future__ import annotations
 
@@ -19,8 +21,11 @@ import numpy as np
 import torch
 
 from functionalmf_tpu_torch._runtime import tree_map
-from functionalmf_tpu_torch.models.base import BayesianTensorFiltering
-from functionalmf_tpu_torch.samplers.ess import elliptical_slice
+from functionalmf_tpu_torch.models.base import (MESH_LATER,
+                                                BayesianTensorFiltering)
+from functionalmf_tpu_torch.parallel.mesh import MP_AXIS
+from functionalmf_tpu_torch.samplers.ess import (draw_ess_noise,
+                                                 elliptical_slice)
 
 __all__ = ["NonconjugateBayesianTensorFiltering"]
 
@@ -32,6 +37,10 @@ class NonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
 
     def __init__(self, nrows, ncols, ndepth, loglikelihood,
                  ess_max_iters=100, **kwargs):
+        mesh = kwargs.get("mesh")
+        if mesh is not None and mesh.size(MP_AXIS) > 1:
+            raise NotImplementedError(MESH_LATER.format(
+                "mp > 1 for NonconjugateBayesianTensorFiltering"))
         super().__init__(nrows, ncols, ndepth, **kwargs)
         self.loglikelihood = loglikelihood
         self.ess_max_iters = int(ess_max_iters)
@@ -52,29 +61,40 @@ class NonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         return torch.func.vmap(lambda W, V: user_ll(W, V, data))
 
     # ------------------------------------------------------------------
+    def _ess_noise(self, gen):
+        """draw_ess_noise for every chain, this rank's part of it."""
+        log_u, u_phi, u = draw_ess_noise(gen, self.nchains,
+                                         self.ess_max_iters, self.device)
+        take = self._part.take
+        return take(log_u, "c"), take(u_phi, "c"), take(u, ".c")
+
     def _update_W_ess(self, state, data, gen):
         """factor.py:572-582: a prior draw from N(0, sigma2 I) on the
         lower-triangular support, then one joint ESS step over all of W."""
         mask, V = self._wmask, state["V"]
-        prior = (torch.randn(state["W"].shape, generator=gen,
-                             device=self.device)
-                 * torch.sqrt(state["sigma2"])[:, None, None] * mask)
+        z = self._part.take(torch.randn(
+            (self.nchains, self.nrows, self.nembeds), generator=gen,
+            device=self.device), "c")
+        prior = z * torch.sqrt(state["sigma2"])[:, None, None] * mask
         ll = self._lifted(data)
         x, _ = elliptical_slice(state["W"], prior,
                                 lambda Wf: ll(Wf * mask, V), gen,
-                                max_iters=self.ess_max_iters)
+                                max_iters=self.ess_max_iters,
+                                noise=self._ess_noise(gen))
         return dict(state, W=x * mask)
 
     def _update_V_ess(self, state, data, gen):
         """factor.py:584-590: a prior draw from the block trend-filtering
         precision (batched over columns), then one joint ESS step over V."""
-        nch, m, k, T = self.nchains, self.ncols, self.nembeds, self.ndepth
-        draw = self._sample_v_prior(gen, state["lam2"], state["Tau2"])
+        nch, m, k, T = self._part.nc, self.ncols, self.nembeds, self.ndepth
+        draw = self._sample_v_prior(gen, state["lam2"], state["Tau2"],
+                                    local=True)
         prior = draw.reshape(nch, m, k, T).transpose(-1, -2)   # (nch,m,T,k)
         W = state["W"]
         ll = self._lifted(data)
         x, _ = elliptical_slice(state["V"], prior, lambda Vf: ll(W, Vf), gen,
-                                max_iters=self.ess_max_iters)
+                                max_iters=self.ess_max_iters,
+                                noise=self._ess_noise(gen))
         return dict(state, V=x.contiguous())
 
     def _make_sweep(self):

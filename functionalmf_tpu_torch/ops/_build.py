@@ -4,7 +4,9 @@ The sources compile at first use into ``functionalmf_tpu_torch/_build/``
 as one shared library with a plain C interface (no PyTorch headers, so
 the build takes seconds). The library's file name carries a hash of the
 sources and flags: an edited source builds anew, an unchanged one loads
-the existing file. A missing nvcc or a failed compile raises with the
+the existing file. A build holds the build directory's lock
+(``_runtime.build_lock``): processes started together (the ranks of a
+mesh) compile once and load the same file. A missing nvcc or a failed compile raises with the
 compiler's output; nothing falls back.
 """
 from __future__ import annotations
@@ -15,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from functionalmf_tpu_torch._runtime import build_lock
 
 __all__ = ["NVCC_FLAGS", "build", "load_library", "declare", "build_log"]
 
@@ -60,17 +64,19 @@ def build(sources=None, name="fmf_kernels") -> Path:
     out = _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    nvcc = _find_nvcc()
-    _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{_log}")
-    os.replace(tmp, out)
+    with build_lock(_BUILD_DIR):
+        if out.exists():          # another process built it meanwhile
+            return out
+        nvcc = _find_nvcc()
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{_log}")
+        os.replace(tmp, out)
     return out
 
 

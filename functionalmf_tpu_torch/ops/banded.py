@@ -369,10 +369,19 @@ def sample_mvn_block_banded(gen, bands=None, mu_part=None, L=None,
     return x
 
 
+def retiled_noise_shape(T: int, p1: int, k: int, B: int = 32):
+    """The shape (T2, B' k) of the standard normals that
+    ``sample_mvn_block_banded_retiled`` draws a batch element, for T time
+    steps of k, p1 - 1 off-diagonal bands and super-blocks of B."""
+    B = min(max(B, p1 - 1), max(T, 1))
+    return (-(-T // B), B * k)
+
+
 def sample_mvn_block_banded_retiled(gen, bands, mu_part=None, B: int = 32,
                                     equilibrate: bool = True,
                                     base_jitter: float = 1e-4,
-                                    return_repairs: bool = False, z=None):
+                                    return_repairs: bool = False, z=None,
+                                    z_tiled=None):
     """theta ~ N((Q + eps I)^-1 mu_part, (Q + eps I)^-1) through
     super-block retiling.
 
@@ -386,7 +395,9 @@ def sample_mvn_block_banded_retiled(gen, bands, mu_part=None, B: int = 32,
     No retries: indefinite pivots are repaired inside the factor loop
     (``_chol_pivot_guarded``) and counted; ``return_repairs`` gives
     (x, repaired, gershgorin) per batch element. ``z`` (..., T, k)
-    injects the standard-normal draw.
+    injects the standard-normal draw; ``z_tiled`` (...,) +
+    ``retiled_noise_shape(...)`` injects it in the retiled layout, as it
+    is drawn here.
     """
     *batch, T, p1, k, _ = bands.shape
     if equilibrate:
@@ -394,7 +405,8 @@ def sample_mvn_block_banded_retiled(gen, bands, mu_part=None, B: int = 32,
         mp = None if mu_part is None else mu_part * s
         out = sample_mvn_block_banded_retiled(
             gen, bands, mu_part=mp, B=B, equilibrate=False,
-            base_jitter=base_jitter, return_repairs=return_repairs, z=z)
+            base_jitter=base_jitter, return_repairs=return_repairs, z=z,
+            z_tiled=z_tiled)
         if return_repairs:
             return out[0] * s, out[1], out[2]
         return out * s
@@ -407,7 +419,9 @@ def sample_mvn_block_banded_retiled(gen, bands, mu_part=None, B: int = 32,
     def tile(v):
         return F.pad(v, (0, 0, 0, pad)).reshape(tuple(batch) + (T2, B * k))
 
-    if z is None:
+    if z_tiled is not None:
+        z = z_tiled
+    elif z is None:
         z = torch.randn(tuple(batch) + (T2, B * k), generator=gen,
                         dtype=bands.dtype, device=bands.device)
     else:

@@ -26,7 +26,8 @@ With ``--baseline``, a second library is built from OLD.cu (an earlier
 ``csrc/fused_ll.cu`` with the same C entry points, without the launch-plan
 arguments) and its device time is taken beside the current kernels' in
 turns: old, new, new, old. ``chip_smoke.py`` runs :func:`run_cases` on the
-paths' own data.
+paths' own data; :func:`mesh_cases` adds the local shapes of a rank of the
+(2, 2) mesh at 20x20x228.
 """
 from __future__ import annotations
 
@@ -41,8 +42,9 @@ import torch
 
 from functionalmf_tpu_torch.ops import fused_ll as F
 
-__all__ = ["H100", "Case", "path_cases", "work", "device_us", "host_us",
-           "event_ms", "check_case", "time_case", "run_cases", "Baseline"]
+__all__ = ["H100", "Case", "path_cases", "mesh_cases", "work", "device_us",
+           "host_us", "event_ms", "check_case", "time_case", "run_cases",
+           "Baseline"]
 
 RTOL, ATOL = 1e-5, 1e-3
 REPS = 50
@@ -232,6 +234,65 @@ def _path_cases(dev, Y, W0, V0, pol, wide_T, seed, G):
                                 device=dev) * 0.4 + 0.8
             cases.append(Case(name, f"{label}: P={P}, Tb={Tb}{tag}",
                               (c3.contiguous(), w, y, pc, pj, pt), ex))
+    return cases
+
+
+def mesh_cases(dev, Y, W0, V0, ep, nchains=4, n_dp=2, n_mp=2, block=8,
+               seed=7):
+    """The local shapes of rank (0, 0) of an (n_dp, n_mp) mesh
+    (models/constrained.py under ``mesh=``) on data ``Y`` (n, m, T) with
+    EP centres ``ep`` = (mu, sig), 101 candidates: the W update over the
+    rank's chains and rows against every column (R = nchains/n_dp *
+    n/n_mp, C = m T; without and with EP), a red-black colour phase over
+    its chains and columns (P = nchains/n_dp * m/n_mp * the phase's
+    blocks, Tb=``block``, y the rank's column slab; no EP) and a seq round
+    (P = nchains/n_dp * m/n_mp, with EP)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                  device=dev)
+    i32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                                    device=dev)
+    n, m, T = Y.shape
+    k, G = W0.shape[1], 101
+    nc, nr, nm = nchains // n_dp, n // n_mp, m // n_mp
+    C = m * T
+    jitter = lambda shape: torch.rand(shape, generator=gen,
+                                      device=dev) * 0.2 + 0.9
+    y, W, V = t(Y), t(W0), t(V0)
+    mu, sig = t(ep[0]), t(ep[1])
+    tag = f"mesh ({n_dp}, {n_mp}) rank 0"
+    cases = []
+    R = nc * nr
+    rc, ri = i32(np.repeat(np.arange(nc), nr)), i32(np.tile(np.arange(nr),
+                                                            nc))
+    cw = torch.rand((R, G, k), generator=gen, device=dev) * 0.4 + 0.8
+    cw = (cw * (torch.arange(k, device=dev)[None]
+                <= torch.arange(nr, device=dev)[:, None]).repeat(nc, 1)[
+                    :, None, :]).contiguous()
+    bt = (V.reshape(1, C, k) * jitter((nc, C, k))).contiguous()
+    rows = lambda x: x[:nr].reshape(nr, C).contiguous()
+    for ex, name in (((), "fused_row_ll"), ((mu, sig), "fused_row_ll_ep")):
+        cases.append(Case(name, f"{tag}: R={R}, C={C}", (
+            cw, bt, rows(y), rc, ri), tuple(map(rows, ex))))
+    cols = lambda x: x[:, :nm].contiguous()
+    w = (W[None] * jitter((nc, n, k))).contiguous()
+    nb_full = T // block
+    for starts, name, ex, label in (
+            ([b * block for b in range(0, nb_full, 2)], "fused_col_block_ll",
+             (), "red-black phase"),
+            ([(nb_full // 2) * block], "fused_col_block_ll_ep", (mu, sig),
+             "seq round")):
+        nb = len(starts)
+        P = nc * nm * nb
+        pc = i32(np.repeat(np.arange(nc), nm * nb))
+        pj = i32(np.tile(np.repeat(np.arange(nm), nb), nc))
+        pt = i32(np.tile(starts, nc * nm))
+        tt = pt[:, None].long() + torch.arange(block, device=dev)
+        c3 = (V[pj[:, None].long(), tt][:, None]
+              * jitter((P, G, block, k))).contiguous()
+        cases.append(Case(name, f"{tag}: {label}: P={P}, Tb={block}", (
+            c3, w, cols(y), pc, pj, pt), tuple(map(cols, ex))))
     return cases
 
 
@@ -495,7 +556,9 @@ def main(argv=None):
     require_full_f32()
     baseline = Baseline(args.baseline) if args.baseline else None
     Y, W, V, pol = synthetic_problem()
-    records = run_cases(path_cases(dev, Y, W, V, pol), baseline)
+    Ym, Wm, Vm, polm = synthetic_problem(n=20, m=20)
+    records = run_cases(path_cases(dev, Y, W, V, pol)
+                        + mesh_cases(dev, Ym, Wm, Vm, polm[3]), baseline)
     for rec in records:
         print(format_record(rec), flush=True)
     if args.out:

@@ -64,7 +64,8 @@ def pg_var(b, c):
 
 
 def polya_gamma(gen, b, c, num_terms: int = 16, use_mt: bool = True,
-                normal_approx_above: float = 50.0, g=None, z=None):
+                normal_approx_above: float = 50.0, g=None, z=None,
+                gamma_noise=None):
     """Draw omega ~ PG(b, c), elementwise over broadcast(b, c).
 
     b: any nonnegative real (b = 0 gives exactly 0, used for missing
@@ -76,7 +77,9 @@ def polya_gamma(gen, b, c, num_terms: int = 16, use_mt: bool = True,
 
     From ``gen`` the gammas are drawn first, then the normals. ``g``
     ((num_terms,) + shape, Gamma(b_safe, 1) draws, b_safe = b where 0 < b
-    < normal_approx_above, else 1) and ``z`` (shape) inject them.
+    < normal_approx_above, else 1) and ``z`` (shape) inject them;
+    ``gamma_noise`` injects the Marsaglia-Tsang sampler's own draws
+    (``ops/gamma.py:draw_gamma_mt_noise`` at (num_terms,) + shape).
     """
     b = torch.as_tensor(b, dtype=torch.float32)
     c = torch.as_tensor(c, dtype=torch.float32, device=b.device)
@@ -94,15 +97,19 @@ def polya_gamma(gen, b, c, num_terms: int = 16, use_mt: bool = True,
 
     if g is None:
         if use_mt:
-            g = gamma_mt(gen, b_safe, shape=(num_terms,) + shape)
+            g = gamma_mt(gen, b_safe, shape=(num_terms,) + shape,
+                         noise=gamma_noise)
         else:
             g = torch._standard_gamma(
                 b_safe.expand((num_terms,) + shape).contiguous(),
                 generator=gen)
-    trunc = (g / denom).sum(0) / _TWO_PI_SQ
+    # the terms summed along a contiguous last axis: an element's sum is
+    # then the same whatever the batch's shape (a mesh rank's chains)
+    trunc = (g / denom).movedim(0, -1).contiguous().sum(-1) / _TWO_PI_SQ
 
     mean_full = pg_mean(b, c)
-    mean_trunc = b_safe * (1.0 / denom).sum(0) / _TWO_PI_SQ
+    mean_trunc = (b_safe * (1.0 / denom).movedim(0, -1).contiguous().sum(-1)
+                  / _TWO_PI_SQ)
     tail = torch.clamp(mean_full - mean_trunc, min=0.0)
     gamma_draw = trunc + tail
 

@@ -6,9 +6,10 @@ problem or a batch), in C++. The source is read from ``native/`` and never
 written there: at first use it is compiled with the host's ``c++`` and
 ``native/Makefile``'s flags into ``functionalmf_tpu_torch/_build/``, as
 ``libfmf_host_<hash>.so`` (a hash of the source and the flags, so an
-edited source builds anew). The compiler writes a temporary file of its
-process and thread that is renamed into place, so builds that run at
-once do not see each other's half-written library. A missing compiler or
+edited source builds anew). A build holds the build directory's lock
+(``_runtime.build_lock``), so processes started together compile once;
+the compiler writes a temporary file of its process and thread that is
+renamed into place. A missing compiler or
 a failed compile raises with the compiler's output; nothing falls back
 to numpy.
 
@@ -29,6 +30,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from functionalmf_tpu_torch._runtime import build_lock
 
 __all__ = ["CXX_FLAGS", "build", "pav", "pav_weighted", "nnls", "nnls_batch",
            "nnls_gram", "nnls_gram_batch"]
@@ -53,21 +56,24 @@ def build(force: bool = False) -> Path:
     out = _BUILD_DIR / f"libfmf_host_{h.hexdigest()[:16]}.so"
     if out.exists() and not force:
         return out
-    cxx = shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("no host C++ compiler (c++) on PATH: the native "
-                           "library is compiled from native/fmf_host.cpp at "
-                           "first use")
-    _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(
-        f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"c++ failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with build_lock(_BUILD_DIR):
+        if out.exists() and not force:   # built meanwhile by another process
+            return out
+        cxx = shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError(
+                "no host C++ compiler (c++) on PATH: the native library is "
+                "compiled from native/fmf_host.cpp at first use")
+        tmp = out.with_name(
+            f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+        cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"c++ failed ({proc.returncode}): {' '.join(cmd)}"
+                f"\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 

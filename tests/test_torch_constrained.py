@@ -664,13 +664,25 @@ def test_factor_rebalance_feasible_with_mixed_row_constraints():
     assert np.unique(r["sigma2"]).size > 30       # the scale moves moved
 
 
+def _mp2_mesh():
+    """A (1, 2) mesh point on the CPU, without a process group: enough for
+    a constructor that refuses it."""
+    from functionalmf_tpu_torch.parallel.mesh import Mesh
+    return Mesh(1, 2, {"dp": 0, "mp": 0}, "cpu", {"dp": None, "mp": None})
+
+
 @pytest.mark.parametrize("kw, match", [
-    (dict(mesh=object()), "mesh"),
+    (dict(mesh="mp2", loglikelihood_cellfn=None, v_schedule="seq"),
+     "mesh"),
 ])
 def test_out_of_slice_options_raise(kw, match):
-    """What the port still lacks raises NotImplementedError. (A model
-    without a cellfn and Row_constraints, refused here until they were
-    ported, are tested above.)"""
+    """What the port still lacks raises NotImplementedError: since the
+    mesh was ported, the model without a cellfn on an mp > 1 mesh. (A
+    model without a cellfn and Row_constraints, refused here until they
+    were ported, are tested above; the other mesh errors in
+    tests/test_torch_mesh.py.)"""
+    if kw.get("mesh") == "mp2":
+        kw = dict(kw, mesh=_mp2_mesh())
     n, m, T, k = 4, 3, 6, 2
     _, C, W0, V0, _ = _problem(1, n, m, T, k)
     args = dict(nembeds=k, tf_order=0, W_init=W0, V_init=V0, v_block_size=3,

@@ -168,14 +168,20 @@ def test_driver_options_run_on_the_constrained_model(tmp_path):
         np.testing.assert_array_equal(resumed[key], full[key])
 
 
-def test_out_of_slice_driver_options_raise():
-    """What the port still lacks raises: the device mesh. (callback and
-    checkpoint_path, refused here until they were ported, are held to
-    their contracts above and in tests/test_torch_callbacks.py.)"""
+def test_out_of_slice_driver_options_raise(tmp_path):
+    """What the port's driver still lacks raises: since the mesh was
+    ported, checkpoint_path under a mesh (every option that waits there is
+    in tests/test_torch_mesh.py). (callback and checkpoint_path, refused
+    here until they were ported, are held to their contracts above and in
+    tests/test_torch_callbacks.py.)"""
+    from functionalmf_tpu_torch.parallel.mesh import Mesh
     Y, C, kw = _data()
+    mesh = Mesh(1, 1, {"dp": 0, "mp": 0}, "cpu", {"dp": None, "mp": None})
+    model = TorchModel(N, M, T, _torch_loglik, C, device="cpu",
+                       loglikelihood_cellfn=POISSON, mesh=mesh, **kw)
     with pytest.raises(NotImplementedError, match="mesh"):
-        TorchModel(N, M, T, _torch_loglik, C, device="cpu",
-                   loglikelihood_cellfn=POISSON, mesh=object(), **kw)
+        model.run_gibbs(Y, nburn=0, nsamples=1, verbose=False,
+                        checkpoint_path=str(tmp_path / "ck.npz"))
 
 
 def test_device_is_required():

@@ -42,6 +42,8 @@ MODULES = [
     "functionalmf_tpu_torch.ops.mvn",
     "functionalmf_tpu_torch.ops.penalty",
     "functionalmf_tpu_torch.ops.polyagamma",
+    "functionalmf_tpu_torch.parallel",
+    "functionalmf_tpu_torch.parallel.mesh",
     "functionalmf_tpu_torch.pgds",
     "functionalmf_tpu_torch.samplers.conjugate",
     "functionalmf_tpu_torch.samplers.ess",
@@ -93,6 +95,24 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_parallel_exports_the_jax_mesh_surface():
+    """``functionalmf_tpu_torch.parallel`` imports no jax (the test above,
+    which imports it) and exports a counterpart of every name of the JAX
+    package's ``parallel/mesh.py`` (its ``parallel/__init__`` exports
+    nothing): the same name where a reader looks for it, the torch
+    counterpart where JAX's names a JAX type."""
+    import functionalmf_tpu_torch.parallel as tp
+    from functionalmf_tpu.parallel import mesh as jmesh
+    counterpart = {"state_shardings": "state_specs",
+                   "specs_to_shardings": "state_specs",
+                   "make_global_array": "gather_state"}
+    for name in jmesh.__all__:
+        assert counterpart.get(name, name) in tp.__all__, name
+    for name in tp.__all__:
+        assert hasattr(tp, name), name
+    assert (tp.DP_AXIS, tp.MP_AXIS) == (jmesh.DP_AXIS, jmesh.MP_AXIS)
 
 
 def test_chip_smoke_imports_no_jax():

@@ -187,7 +187,7 @@ def test_w_and_v_updates_match_jax_under_injected_noise(monkeypatch):
     injected = {}
     real = tnc.elliptical_slice
 
-    def patched(x, prior, loglik, gen, max_iters):
+    def patched(x, prior, loglik, gen, max_iters, noise=None):
         return real(x, injected["prior"], loglik, max_iters=max_iters,
                     noise=injected["noise"])
 
