@@ -34,7 +34,21 @@ Phases (any failure raises and exits non-zero before the last line):
      unsharded run on the card within rtol = atol = 1e-3 (on the GASS
      paths but for picks that flip: at most 1% of the values), every
      recipe draw feasible; the phase's seconds, the sweeps/s on the mesh
-     beside the unsharded run's and the collectives a sweep;
+     beside the unsharded run's and the collectives a sweep; (c) the same
+     four ranks, (2, 2): the dose-response model as the app builds it at
+     98x50x9x6, k=5, from a warm start made of the data (no NMF), on
+     {Y, X, U} with the app's device U hook rewriting Row_constraints and
+     U collected (both updates read the whole data at global indices),
+     and on {Y} (row and column slabs, local positions), then ESS at
+     20x20x228, k=5, nchains=4, each 1 + 1 sweeps against the unsharded
+     run on the card (dose-response: at most 1% of W, V and U beyond
+     1e-3, every draw inside its curve and row constraints; ESS: W and V
+     within 1e-5), then 5 timed sweeps; and the recipe at 20x20x228 cut
+     after 3 sweeps and resumed from its checkpoint, equal to the uncut
+     mesh run bit for bit, and a profiled sweep that leaves one trace a
+     rank; one line a part (seconds, sweeps/s on the mesh and unsharded,
+     collectives a sweep, the gathers that hand the hook the global
+     state, the branch each update took);
   4. politics: the port's app (functionalmf_tpu_torch.apps.politics.
      benchmark) on its synthetic 19x19x228 tensor, EP on, with the seq
      schedule (nchains=1), the red-black schedule (nchains=4) and the joint
@@ -144,6 +158,7 @@ line before the last is the kernels' JSON record, the last line
 """
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -688,6 +703,325 @@ def mesh_gloo_phase(dev):
     phase_seconds("mesh (b) gloo, four ranks on one card", t0)
 
 
+# ----------------------------------------------------------------------
+# phase (c): the black-box models and run_gibbs's options on the mesh
+# ----------------------------------------------------------------------
+MESH_C_RESUME = (2, 1, 4)       # nburn, draws of the cut run, of the whole
+MESH_C_COUNTED = ("all_gather", "all_reduce", "broadcast", "barrier")
+
+
+def dose_mesh_problem():
+    """(c1, c2)'s data on the host: the app's simulation written and read
+    back as CSV, the empirical-Bayes likelihood's grid (20 components),
+    the row features, and a warm start built from the data alone (no NMF):
+    every row's W the constant 1/k on its active embeddings, every column's
+    V the column's mean curve clipped to [0.02, 0.98] and made
+    non-increasing, so that every curve constraint holds; U0 the
+    simulator's U clipped to [0, 1], so that W U^T lies in [0, 1]; EP from
+    that start as the app builds it (sigma 3x the RMS error)."""
+    from functionalmf_tpu_torch.apps.doseresponse import (
+        empirical_bayes as eb, fit, sim)
+    from functionalmf_tpu_torch.models.base import tril_mask
+    from functionalmf_tpu_torch.utils.ep import ep_from_mf
+    s = sim.simulate(**DOSE_SIM)
+    with tempfile.TemporaryDirectory() as d:
+        sim.write_csv(s, d)
+        df = eb.read_csv_columns(f"{d}/data.csv")
+        Y, lik, cells = eb.estimate_likelihood(
+            df, nbins=20, tensor_outcomes=True, verbose=False,
+            device="cpu")[:3]
+        X, _ = fit.read_features(f"{d}/features.csv", cells)
+    n, m, T, _ = Y.shape
+    k = DOSE_SIM["k"]
+    W0 = tril_mask(n, k) / k
+    curve = np.clip(np.nanmean(Y, axis=(0, 3)), 0.02, 0.98)
+    curve = np.minimum.accumulate(curve, axis=1)                 # (m, T)
+    V0 = np.repeat(curve[:, :, None], k, axis=2)
+    U0 = np.clip(s["U"], 0.0, 1.0)
+    ep = ep_from_mf(Y, W0, V0, mode="multiplier", multiplier=3)
+    return dict(Y=Y, X=X, warm=(W0, V0, U0, ep),
+                grid=(lik.mean_grid, lik.mean_probs, lik.variance))
+
+
+def dose_mesh_model(dev, dose, features, mesh=None):
+    """The dose-response model as the app builds it (``fit.init_model``:
+    its constraints, EP, Row_constraints from U, seq schedule), k=5,
+    tf_order=2, from the problem's warm start; with ``features`` the
+    {Y, X, U} pytree and the app's device U hook, else {Y}. Returns
+    (model, data, hook)."""
+    from functionalmf_tpu_torch.apps.doseresponse import fit
+    from functionalmf_tpu_torch.apps.doseresponse.empirical_bayes import (
+        GammaGridLikelihood)
+    mean_grid, mean_probs, variance = dose["grid"]
+    lik = GammaGridLikelihood(mean_grid, mean_probs, variance, device=dev)
+    args = fit.parse_args(["--nembeds", str(DOSE_SIM["k"]), "--tf_order",
+                           "2", "--device", str(dev)]
+                          + ["--sample_features"] * features)
+    W0, V0, U0, ep = dose["warm"]
+    X = dose["X"] if features else None
+    model, U0 = fit.init_model(dose["Y"], lik, args, X=X,
+                               warm=(W0, V0, U0 if features else None, ep),
+                               mesh=mesh)
+    data = {"Y": dose["Y"]}
+    if features:
+        data.update(X=X, U=U0)
+    return model, data, fit.make_traced_u_step(X, dev) if features else None
+
+
+def ess_mesh_model(dev, mesh=None):
+    """(c3): the ESS cell at 20x20x228, k=5, nchains=4 (19 rounded up so
+    that mp=2 divides rows and columns), ``ess_loglik`` on Poisson counts
+    of ``synthetic_mu``."""
+    from functionalmf_tpu_torch import NonconjugateBayesianTensorFiltering
+    Mu, rng = synthetic_mu(MESH_N, MESH_N)
+    Y = rng.poisson(np.exp(np.clip(Mu, -3, 3))).astype(float)
+    Y[rng.random((MESH_N, MESH_N)) < 0.1] = np.nan
+    return NonconjugateBayesianTensorFiltering(
+        MESH_N, MESH_N, NDEPTH, ess_loglik, device=dev, nembeds=NEMBEDS,
+        tf_order=2, sigma2_init=0.5, lam2_init=0.1, seed=0, nchains=4,
+        mesh=mesh), Y
+
+
+MESH_C_PARTS = ("c1", "c2", "c3", "c4")
+
+
+def mesh_c_part(part, dev, dose, prob, mesh=None):
+    """(model, data, run_gibbs kwargs) of a part of phase (c)."""
+    if part in ("c1", "c2"):
+        model, data, hook = dose_mesh_model(dev, dose, part == "c1", mesh)
+        return model, data, (dict(traced_callback=hook,
+                                  collect_data_keys=("U",))
+                             if part == "c1" else {})
+    if part == "c3":
+        return ess_mesh_model(dev, mesh) + ({},)
+    return recipe_model(dev, prob["Y"].shape, prob["Con"], prob["W0"],
+                        prob["V0"], nchains=4, mesh=mesh), prob["Y"], {}
+
+
+def continued(part, model, data):
+    """The data a further run of a part starts from: the U hook keeps U in
+    the prepared data, which a run does not give back, so (c1) continues
+    from the U of the state's Row_constraints, [U | 0; -U | -1]."""
+    if part != "c1":
+        return data
+    p, k = data["U"].shape
+    return dict(data, U=model.Row_constraints[:p, :k])
+
+
+def _count_calls(mesh, calls):
+    """Count and time every collective of ``mesh`` into ``calls``."""
+    for name in MESH_C_COUNTED:
+        real = getattr(mesh, name)
+
+        def counted(*a, _real=real, _c=calls[name], **kw):
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            _c[0] += 1
+            _c[1] += time.perf_counter() - t0
+            return out
+        setattr(mesh, name, counted)
+
+
+def mesh_c_rank(rank, world, dev_type, dose, prob, ckdir, profdir):
+    """Phase (c) on one rank of four sharing the card, mesh (2, 2): each
+    part 1 + 1 sweeps (c3: the same; c4: the recipe's cut, resumed and
+    whole runs, then a profiled sweep), then MESH_TIMED timed sweeps with
+    every collective counted and timed, and the gathers of the hooks."""
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    from functionalmf_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(2, 2, device_type=dev_type)
+    calls = {name: [0, 0.0] for name in MESH_C_COUNTED}
+    _count_calls(mesh, calls)
+    sync = (torch.cuda.synchronize if dev_type == "cuda" else
+            (lambda: None))
+    out = {}
+    for part in MESH_C_PARTS:
+        t_part = time.perf_counter()
+        model, data, kw = mesh_c_part(part, mesh.device, dose, prob, mesh)
+        # the all-gathers that hand a hook the global state (the driver's
+        # model.state, every sweep)
+        before = calls["all_gather"][0]
+        model.state
+        hook_gathers = (calls["all_gather"][0] - before
+                        if "traced_callback" in kw else 0)
+        F.reset_launch_counts()
+        if part == "c4":
+            nburn, cut, whole = MESH_C_RESUME
+            ck = f"{ckdir}/chain.npz"
+            model.run_gibbs(data, nburn=nburn, nthin=1, nsamples=cut,
+                            verbose=False, checkpoint_path=ck)
+            again = mesh_c_part(part, mesh.device, dose, prob, mesh)[0]
+            res = again.run_gibbs(data, nburn=nburn, nthin=1,
+                                  nsamples=whole, verbose=False,
+                                  checkpoint_path=ck, resume=True)
+            model = mesh_c_part(part, mesh.device, dose, prob, mesh)[0]
+            uncut = model.run_gibbs(data, nburn=nburn, nthin=1,
+                                    nsamples=whole, verbose=False)
+            out["c4 uncut"] = _numpy_results(uncut)
+        else:
+            res = model.run_gibbs(data, nburn=1, nthin=1, nsamples=1,
+                                  verbose=False, **kw)
+        sync()
+        launches = dict(F.launch_counts)
+        data = continued(part, model, data)
+        for c in calls.values():
+            c[:] = [0, 0.0]
+        t0 = time.perf_counter()
+        model.run_gibbs(data, nburn=MESH_TIMED - 1, nthin=1, nsamples=1,
+                        verbose=False, **kw)
+        sync()
+        dt = time.perf_counter() - t0
+        out[part] = dict(
+            res=_numpy_results(res), seconds=dt, launches=launches,
+            split=getattr(model, "_data_split", None),
+            slack=(model._worst_constraint_slack()
+                   if hasattr(model, "_worst_constraint_slack") else 0.0),
+            collectives={k: (c[0] / MESH_TIMED, 1e3 * c[1] / MESH_TIMED)
+                         for k, c in calls.items()},
+            hook_gathers=hook_gathers,
+            part_seconds=time.perf_counter() - t_part)
+    # last: the profiler slows every later launch of this process
+    model, data, _ = mesh_c_part("c4", mesh.device, dose, prob, mesh)
+    model.run_gibbs(data, nburn=0, nthin=1, nsamples=1, verbose=False,
+                    profile_dir=profdir)
+    return out
+
+
+def sum_invariance_probe(dev, draws=50):
+    """Why the mesh's sums run in a fixed order: at the ESS cell's lam2
+    shape (nchains 4, 20 columns, 683 penalty rows, k=5), the per-column
+    sums of a (2, 2) rank's block (2 chains, 10 columns) against those of
+    the whole tensor, for ``draws`` random tensors: torch.sum (differs
+    where a reduction orders its sums by its number of outputs) and
+    ``models/base.py:_fixed_sum`` (must never differ)."""
+    from functionalmf_tpu_torch.models.base import _fixed_sum
+    g = torch.Generator(device=dev).manual_seed(0)
+    differ = {"torch.sum": 0, "_fixed_sum": 0}
+    for _ in range(draws):
+        x = torch.rand((4, MESH_N, 3 * NDEPTH - 1, NEMBEDS), generator=g,
+                       device=dev) ** 3 * 100
+        part = x[:2, :MESH_N // 2].contiguous()
+        for name, f in (("torch.sum", lambda t: t.sum((2, 3))),
+                        ("_fixed_sum", lambda t: _fixed_sum(t, (2, 3)))):
+            differ[name] += int(not torch.equal(
+                f(x)[:2, :MESH_N // 2], f(part)))
+    print(f"mesh (c): per-column sums of a rank's block against the whole "
+          f"tensor's, {draws} random draws at (4, {MESH_N}, {3 * NDEPTH - 1}"
+          f", {NEMBEDS}): differ in {json.dumps(differ)}")
+    if differ["_fixed_sum"]:
+        fail("mesh (c): _fixed_sum of a rank's block differs from the whole "
+             "tensor's")
+
+
+def mesh_blackbox_phase(dev):
+    """(c): four ranks share the card in a gloo group, mesh (dp=2, mp=2):
+    (c1) the dose-response model at 98x50x9x6, k=5, on {Y, X, U} with the
+    app's device U hook rewriting Row_constraints, collecting U (both
+    updates read the whole data at global indices: X and U are not indexed
+    by column, U not by row); (c2) the same model on {Y} (row and column
+    slabs, local positions); (c3) ESS at 20x20x228, k=5, nchains=4; each
+    1 + 1 sweeps against the unsharded run on the card, then MESH_TIMED
+    timed sweeps on both; (c4) the bench.py recipe (both fused kernels at
+    a rank's local shapes) cut after 3 sweeps and resumed from its
+    checkpoint, equal to the uncut mesh run bit for bit, and a profiled
+    sweep that leaves one trace a rank. Gates: c1, c2 at most MESH_FAR_MAX
+    of the W, V (and U) values beyond rtol = atol = 1e-3 of the unsharded
+    run, every dose-response draw inside its curve and row constraints;
+    c3 W and V within 1e-5. One line a part: seconds, sweeps/s on the mesh
+    and unsharded, collectives a sweep a rank, the branch of each
+    update."""
+    t0 = time.perf_counter()
+    sum_invariance_probe(dev)
+    dose, prob = dose_mesh_problem(), mesh_problem()
+    with tempfile.TemporaryDirectory() as ckdir, \
+            tempfile.TemporaryDirectory() as profdir:
+        outs = spawn_mesh("mesh_c_rank", 4, "gloo", dev.type, dose, prob,
+                          ckdir, profdir)
+        traces = sorted(os.listdir(profdir))
+    t_ranks = time.perf_counter() - t0
+    want = ["trace.json"] + [f"trace.rank{r}.json" for r in (1, 2, 3)]
+    if traces != want:
+        fail(f"mesh (c4): the profiled sweep left {traces}, not {want}")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    splits = {"c1": {"W": "whole", "V": "whole"},
+              "c2": {"W": "slab", "V": "slab"}, "c3": None,
+              "c4": {"W": "slab", "V": "slab"}}
+    for part in MESH_C_PARTS:
+        model, data, kw = mesh_c_part(part, dev, dose, prob)
+        tag = f"mesh (c) {part}"
+        t1 = time.perf_counter()
+        if part == "c4":
+            nburn, _, whole = MESH_C_RESUME
+            ref = model.run_gibbs(data, nburn=nburn, nthin=1,
+                                  nsamples=whole, verbose=False)
+        else:
+            ref = model.run_gibbs(data, nburn=1, nthin=1, nsamples=1,
+                                  verbose=False, **kw)
+        data = continued(part, model, data)
+        t2 = time.perf_counter()
+        model.run_gibbs(data, nburn=MESH_TIMED - 1, nthin=1, nsamples=1,
+                        verbose=False, **kw)
+        sync()
+        rate = MESH_TIMED / (time.perf_counter() - t2)
+        keys = {"c1": ("W", "V", "U"), "c2": ("W", "V"), "c3": ("W", "V"),
+                "c4": ("W", "V")}[part]
+        for r, o in enumerate(outs):
+            o = o[part]
+            if o["split"] != splits[part]:
+                fail(f"{tag} rank {r}: the updates took {o['split']}, "
+                     f"expected {splits[part]}")
+            for key in keys:
+                if not np.array_equal(o["res"][key],
+                                      outs[0][part]["res"][key]):
+                    fail(f"{tag} rank {r}: its {key} differs from rank 0's")
+            if part == "c4":
+                for key, v in outs[r]["c4 uncut"].items():
+                    if not np.array_equal(o["res"][key], v):
+                        fail(f"{tag} rank {r}: {key} of the resumed run "
+                             "differs from the uncut mesh run")
+                check_launches(f"{tag} rank {r}", o["launches"],
+                               ("fused_row_ll", "fused_col_block_ll"))
+                continue
+            if any(o["launches"].values()):
+                fail(f"{tag} rank {r}: a fused kernel launched "
+                     f"({o['launches']}) on a path without a cell function")
+            for key in keys:
+                if part == "c3":
+                    d = float(np.abs(o["res"][key] - ref[key]).max())
+                    if not d <= 1e-5:
+                        fail(f"{tag} rank {r}: {key} differs from the "
+                             f"unsharded run by {d:.3e} (limit 1e-5)")
+                    continue
+                far = mesh_far_share(o["res"][key], ref[key])
+                if far > MESH_FAR_MAX:
+                    fail(f"{tag} rank {r}: {far:.2%} of {key} differs from "
+                         "the unsharded run by more than rtol = atol = "
+                         f"1e-3 (at most {MESH_FAR_MAX:.0%})")
+            if part in ("c1", "c2") and r == 0:
+                res = o["res"]      # the other ranks' equal rank 0's
+                U = res["U"] if part == "c1" else None
+                check_dose_draws(tag, res["W"], res["V"], U,
+                                 dose["warm"][2], dose["warm"][:2])
+            if o["slack"] < -1e-5:
+                fail(f"{tag} rank {r}: final state infeasible (slack "
+                     f"{o['slack']:.3e})")
+        o0 = outs[0][part]
+        diffs = {k: (float(np.abs(o0["res"][k] - ref[k]).max()),
+                     int(round(mesh_far_share(o0["res"][k], ref[k])
+                               * ref[k].size)), ref[k].size) for k in keys}
+        mesh_rate = MESH_TIMED / max(o[part]["seconds"] for o in outs)
+        print(f"{tag}: {max(o[part]['part_seconds'] for o in outs):.1f}s on "
+              f"the ranks; sweeps_per_sec mesh(2,2) {mesh_rate:.3f} "
+              f"unsharded {rate:.3f}; collectives a sweep a rank (calls, "
+              f"ms) {json.dumps(o0['collectives'])}, of them all_gathers "
+              f"for the hook {o0['hook_gathers']}; branch {o0['split']}; "
+              f"|mesh - unsharded| (max, values beyond 1e-3, values) "
+              f"{json.dumps(diffs)}; unsharded {t2 - t1:.1f}s")
+    print(f"mesh (c4): resumed run equal to the uncut mesh run bit for bit; "
+          f"traces {traces}; ranks' part {t_ranks:.1f}s")
+    phase_seconds("mesh (c) black-box models and run_gibbs options", t0)
+
+
 def agreement_phase(dev, v_schedule, ep, gass_method="grid"):
     """A small model on the card (kernels) and on the CPU (plain versions):
     same posterior mean of Mu up to Monte Carlo error, the rel < 0.12
@@ -1089,9 +1423,10 @@ def check_no_launches(tag, launches):
 
 def check_dose_draws(tag, Ws, Vs, Us, U0, warm_start, tol=1e-4):
     """Every collected draw: finite, Mu in [0, 1], softened monotone
-    (Mu[t] - Mu[t+1] >= -1e-2), W U^T in [0, 1]; U, W and V moved."""
+    (Mu[t] - Mu[t+1] >= -1e-2), W U^T in [0, 1]; U, W and V moved. A run
+    without features (``Us`` None) has no U and no row constraints."""
     for name, x in (("W", Ws), ("V", Vs), ("U", Us)):
-        if not np.isfinite(x).all():
+        if x is not None and not np.isfinite(x).all():
             fail(f"{tag}: non-finite draws in {name}")
     mu = np.einsum("snk,smtk->snmt", Ws, Vs)
     if mu.min() < -tol or mu.max() > 1 + tol:
@@ -1101,25 +1436,30 @@ def check_dose_draws(tag, Ws, Vs, Us, U0, warm_start, tol=1e-4):
     if step < -1e-2 - tol:
         fail(f"{tag}: a draw violates the softened monotonicity "
              f"(min Mu[t] - Mu[t+1] = {step:.6f}, limit -0.01)")
-    wu = np.einsum("snk,spk->snp", Ws, Us)
-    if wu.min() < -tol or wu.max() > 1 + tol:
-        fail(f"{tag}: a draw violates the row constraints (W U^T in "
-             f"[{wu.min():.6f}, {wu.max():.6f}])")
     S = Ws.shape[0]
-    if Us.shape != (S,) + U0.shape:
-        fail(f"{tag}: U draws have shape {Us.shape}, expected "
-             f"{(S,) + U0.shape}")
+    rows = ""
+    if Us is not None:
+        wu = np.einsum("snk,spk->snp", Ws, Us)
+        if wu.min() < -tol or wu.max() > 1 + tol:
+            fail(f"{tag}: a draw violates the row constraints (W U^T in "
+                 f"[{wu.min():.6f}, {wu.max():.6f}])")
+        if Us.shape != (S,) + U0.shape:
+            fail(f"{tag}: U draws have shape {Us.shape}, expected "
+                 f"{(S,) + U0.shape}")
+        rows = f", W U^T in [{wu.min():.5f}, {wu.max():.5f}]"
     moved = {}
     for name, x, x0 in (("U", Us, U0), ("W", Ws, warm_start[0]),
                         ("V", Vs, warm_start[1])):
+        if x is None:
+            continue
         d = np.abs(x - x0.astype(np.float32)).reshape(S, -1).max(axis=1)
         if not (d > 0).all():
             fail(f"{tag}: a collected {name} draw equals its start")
         moved[name] = float(np.abs(x - x0).mean() / np.abs(x0).mean())
     print(f"doseresponse {tag}: {S} draws finite and feasible: Mu in "
-          f"[{mu.min():.5f}, {mu.max():.5f}], min step {step:.5f}, W U^T in "
-          f"[{wu.min():.5f}, {wu.max():.5f}]; mean |draw - start| / mean "
-          f"|start|: " + ", ".join(f"{a} {b:.4f}" for a, b in moved.items()))
+          f"[{mu.min():.5f}, {mu.max():.5f}], min step {step:.5f}{rows}; "
+          "mean |draw - start| / mean |start|: "
+          + ", ".join(f"{a} {b:.4f}" for a, b in moved.items()))
 
 
 def lifted_loglik_gate(model, data, dev):
@@ -2100,6 +2440,7 @@ def main():
     # the mesh: its ranks load the kernels built above
     mesh_nccl_phase(dev, Y, Con, W0, V0)
     mesh_gloo_phase(dev)
+    mesh_blackbox_phase(dev)
     stamp("the mesh")
     # the politics app's default schedule first: its launches are the EP
     # kernels' record

@@ -203,10 +203,12 @@ def warm_start(Y, args, X=None):
     return W, V, U0, ep_from_mf(Y, W, V, mode="multiplier", multiplier=3)
 
 
-def init_model(Y, likelihood, args, X=None, warm=None):
+def init_model(Y, likelihood, args, X=None, warm=None, mesh=None):
     """Constraints, warm start and EP centring (reference fit.py:54-187).
     Returns (model, U0). ``warm`` is what ``warm_start`` returned for the
-    same data, features and seed; it is computed here when not given."""
+    same data, features and seed; it is computed here when not given.
+    With ``mesh`` (``parallel/mesh.py``) the model runs on that rank's
+    device and part of the mesh."""
     ndepth = Y.shape[2]
     C_zero = np.concatenate([np.eye(ndepth), np.zeros((ndepth, 1))], axis=1)
     C_mono = np.array([np.concatenate([np.zeros(i), [1, -1],
@@ -238,7 +240,8 @@ def init_model(Y, likelihood, args, X=None, warm=None):
         Row_constraints=Row_constraints,
         nchains=nchains,
         seed=args.seed,
-        device=args.device)
+        device=args.device if mesh is None else mesh.device,
+        mesh=mesh)
     model.W = W
     model.V = V
     return model, U0

@@ -29,13 +29,17 @@ and V / Tau2 columns over mp, an axis dropped where it does not divide);
 ``load_state`` and the setters take global values and keep this rank's
 slice. Every draw is taken at its global shape, in the order of the
 unsharded run, and each rank keeps its part (``_Part.take``), so a
-sharded run computes what the unsharded run computes up to the order of
-its sums. The collectives of the prior sweep: the sum of W^2 over rows
-(sigma2) and of the V prior terms over columns (lam2), all-reduce SUM
-over mp; the non-finite guard's per-chain verdict, all-reduce MIN over
-mp. ``run_gibbs`` all-gathers the collected draws once a chunk and
-returns, on every rank, the dict of the unsharded run. Under a mesh
-every rank calls the model's methods together (they gather).
+sharded run computes what the unsharded run computes. A sum over rows
+or columns all-gathers every rank's per-row (per-column) partial sums
+and adds them as the unsharded run does (``_Part.rows_sum``,
+``cols_sum``), so that a sharded run can have its bits. The
+collectives of the prior sweep: the sum of W^2 over rows (sigma2) and of
+the V prior terms over columns (lam2), each an all-gather over mp; the
+non-finite guard's per-chain verdict, all-reduce MIN over mp.
+``run_gibbs`` all-gathers the collected draws once a chunk and returns,
+on every rank, the dict of the unsharded run; its options work under a
+mesh (its docstring). Under a mesh every rank calls the model's methods
+together (they gather).
 """
 from __future__ import annotations
 
@@ -61,8 +65,6 @@ from functionalmf_tpu_torch.samplers.horseshoe import (
 
 __all__ = ["BayesianTensorFiltering", "tril_mask", "packed_w_len"]
 
-# what waits under a mesh (ROADMAP.md, Queue 1)
-MESH_LATER = "not supported under a mesh yet (ROADMAP.md, Queue 1: {})"
 # sweeps at most under the profiler of ``run_gibbs(profile_dir=)``: every
 # launch adds an event to its buffer
 _PROFILE_MAX_SWEEPS = 16
@@ -80,6 +82,21 @@ def packed_w_len(nrows: int, nembeds: int) -> int:
         return ((nembeds * nembeds - nembeds) // 2 + nembeds
                 + (nrows - nembeds) * nembeds)
     return (nrows * nrows - nrows) // 2 + nrows
+
+
+def _fixed_sum(x, dims):
+    """x summed over ``dims`` (kept, of size 1) in an order fixed by their
+    sizes alone: halves added pairwise, each step an elementwise add. A
+    reduction kernel on the card orders its sums by the number of outputs
+    too, and a rank of a mesh holds a part of the outputs."""
+    keep = [d for d in range(x.dim()) if d not in dims]
+    y = x.permute(keep + list(dims)).reshape(
+        [x.shape[d] for d in keep] + [-1])
+    while y.shape[-1] > 1:
+        h = y.shape[-1] // 2
+        z = y[..., :h] + y[..., h:2 * h]
+        y = torch.cat([z, y[..., 2 * h:]], -1) if y.shape[-1] % 2 else z
+    return y.reshape([1 if d in dims else n for d, n in enumerate(x.shape)])
 
 
 class _Part:
@@ -102,6 +119,7 @@ class _Part:
             i = mesh.index(axis)
             return slice(i * b, (i + 1) * b), True
 
+        self.nrows, self.ncols = nrows, ncols
         self.c, self.split_c = part(nchains, DP_AXIS)
         self.r, self.split_r = part(nrows, MP_AXIS)
         self.m, self.split_m = part(ncols, MP_AXIS)
@@ -122,17 +140,54 @@ class _Part:
             cut = cut or split
         return x[tuple(idx)] if cut else x
 
+    def data_slab(self, pdata, axis):
+        """This rank's slab of a prepared data pytree along ``axis`` (0:
+        rows, for the W update; 1: columns, for the V update), or None
+        where the pytree stays whole. It is cut only where the axis is
+        split over mp and every leaf has that axis at the length of the
+        model's rows (columns): then a user's ``row`` / ``col`` index is a
+        position in the slab, as inside the JAX package's ``shard_map``
+        regions. Otherwise every rank reads the whole pytree at global
+        indices, as in the JAX package's regions without ``shard_map``.
+        The length check keeps a leaf that is not indexed by row (column)
+        whole, where the JAX package cuts any leaf the mesh divides
+        (functionalmf_tpu/models/constrained.py:360-365)."""
+        sl, split, n = ((self.r, self.split_r, self.nrows) if axis == 0
+                        else (self.m, self.split_m, self.ncols))
+        leaves = tree_leaves(pdata)
+        if not (split and leaves and all(
+                x.dim() > axis and x.shape[axis] == n for x in leaves)):
+            return None
+        idx = (slice(None),) * axis + (sl,)
+        return tree_map(lambda x: x[idx].contiguous(), pdata)
+
     def _reduce(self, x, split, op):
         return self.mesh.all_reduce(x, MP_AXIS, op) if split else x
 
+    def _sum(self, x, dims, split):
+        """x summed over ``dims``, which hold axis 1 (rows or columns), in
+        two stages that run alike with and without a mesh: over the other
+        dims (``_fixed_sum``), then, once the partial sums of every rank
+        are all-gathered over mp where the axis is split, over axis 1. A
+        rank's partial sums are those of the unsharded run at the same
+        positions, so the sum has the unsharded run's bits (an all-reduce
+        of partial sums rounds otherwise, and a GASS, slice or ESS update
+        can turn that rounding into a difference of 1e-4 or a flipped pick
+        a few updates later)."""
+        dims = tuple(d % x.dim() for d in dims)
+        rest = tuple(d for d in dims if d != 1)
+        part = _fixed_sum(x, rest) if rest else x
+        if split:
+            part = self.mesh.all_gather(part, MP_AXIS, 1)
+        return part.sum(dims)
+
     def rows_sum(self, x, dims):
-        """x summed over ``dims`` and over every row: this rank's partial
-        sums, all-reduced over mp where rows are split."""
-        return self._reduce(x.sum(dims), self.split_r, "sum")
+        """x summed over ``dims`` and over every row (x's axis 1)."""
+        return self._sum(x, dims, self.split_r)
 
     def cols_sum(self, x, dims):
-        """x summed over ``dims`` and over every column (as rows_sum)."""
-        return self._reduce(x.sum(dims), self.split_m, "sum")
+        """x summed over ``dims`` and over every column (x's axis 1)."""
+        return self._sum(x, dims, self.split_m)
 
     def cols_min(self, x):
         return self._reduce(x, self.split_m, "min")
@@ -207,6 +262,7 @@ class BayesianTensorFiltering:
         self.Delta_np = bayes_grid_penalty(ndepth, tf_order)
         self.Delta = self._t(self.Delta_np)                    # (nD, T)
         self.nD = self.Delta_np.shape[0]
+        self._delta_taps = self._band_taps(self.Delta_np)
 
         self.sigma2_a = sigma2_a
         self.sigma2_b = sigma2_b
@@ -389,6 +445,13 @@ class BayesianTensorFiltering:
     def _global(self, key):
         return self._gather({key: self._state[key]}, self._specs)[key]
 
+    def _shard(self, gstate):
+        """This rank's slices of a global state dict (the dict itself
+        without a mesh)."""
+        if self.mesh is None:
+            return gstate
+        return shard_state(gstate, self.mesh, self.state_partition_specs())
+
     # ------------------------------------------------------------------
     # state access
     # ------------------------------------------------------------------
@@ -446,11 +509,12 @@ class BayesianTensorFiltering:
         w = self._v_prior_weights(lam2, Tau2)
         return (self.Delta.T * w[..., None, :]) @ self.Delta
 
-    def _sample_v_prior(self, gen, lam2, Tau2, local=False):
+    def _sample_v_prior(self, gen, lam2, Tau2, dims=None):
         """(nch, m, k*T) ~ N(0, kron(I_k, DtLD)^-1), one (T, T) Cholesky per
         column with k right-hand sides, Jacobi-equilibrated; embed-major.
-        With ``local`` lam2 and Tau2 are this rank's part of the state and
-        so is the draw."""
+        The normals are drawn for every chain and column; with ``dims``
+        ('c' or 'cm', as in ``_Part.take``) lam2 and Tau2 are this rank's
+        chains (and columns) and so is the draw."""
         nch, m = Tau2.shape[:2]
         T, k = self.ndepth, self.nembeds
         DtLD = self._v_prior_dtld(lam2, Tau2)
@@ -462,19 +526,36 @@ class BayesianTensorFiltering:
                          if self.linalg_opts["force_psd"] else 0)
         z = torch.randn((self.nchains, self.ncols, T, k), generator=gen,
                         device=self.device)
-        if local:
-            z = self._part.take(z, "cm")
+        if dims:
+            z = self._part.take(z, dims)
         x = torch.linalg.solve_triangular(L.mT, z, upper=True)
         x = x * dinv[..., None]
         return x.transpose(-1, -2).reshape(nch, m, k * T)
 
+    def _band_taps(self, D):
+        """Delta's rows as w taps: (index (w, nD), weight (w, nD)), row d
+        being sum_o weight[o, d] e_{index[o, d]}, w the widest row's span."""
+        nz = np.abs(D) > 0
+        T = D.shape[1]
+        first = nz.argmax(1)
+        last = T - 1 - nz[:, ::-1].argmax(1)
+        w = int((last - first).max()) + 1
+        idx = np.minimum(first, T - w)[None, :] + np.arange(w)[:, None]
+        weight = D[np.arange(D.shape[0])[None, :], idx]
+        return (torch.as_tensor(idx, dtype=torch.long, device=self.device),
+                self._t(weight))
+
     def _deltas(self, V):
-        """Delta V_j per chain and column: (nch, m, nD, k). Each chain's
-        block is contiguous in (nD, m, k) order, the einsum's layout of one
-        chain, so that a chain's sums do not depend on how many chains a
-        rank holds (the einsum interleaves the chains along nD)."""
-        d = torch.einsum("dt,cjtk->cjdk", self.Delta, V)
-        return d.transpose(1, 2).contiguous().transpose(1, 2)
+        """Delta V_j per chain and column: (nch, m, nD, k), contiguous: the
+        banded Delta's few taps of V, weighted and added elementwise. So
+        every value has the same bits however many chains and columns a
+        call holds (a matrix product over them is ordered by their
+        number, on the card), and a chain's block is contiguous."""
+        idx, weight = self._delta_taps
+        d = weight[0][:, None] * V[:, :, idx[0]]
+        for o in range(1, idx.shape[0]):
+            d = d + weight[o][:, None] * V[:, :, idx[o]]
+        return d
 
     @property
     def _wmask_rows(self):
@@ -568,6 +649,17 @@ class BayesianTensorFiltering:
     # ------------------------------------------------------------------
     def prepare_data(self, data):
         raise NotImplementedError
+
+    def _whole_data(self, pdata):
+        """The whole prepared pytree, as a hook, ``collect_data_keys`` and
+        a checkpoint see it. A model that keeps slabs of it under a mesh
+        overrides this and ``_cut_data``."""
+        return pdata
+
+    def _cut_data(self, whole):
+        """The prepared data a sweep reads, from the whole pytree that a
+        hook returned or a checkpoint held."""
+        return whole
 
     def _make_sweep(self):
         """Return sweep(state, pdata, gen) -> state over all chains."""
@@ -694,16 +786,27 @@ class BayesianTensorFiltering:
         * ``key``: an integer in place of the model's seed for this run's
           sweeps and hook.
 
-        Under a mesh every rank calls this with the same arguments; the
-        hooks, ``collect_data_keys``, checkpoints and the profiler wait
-        (they raise NotImplementedError).
+        Under a mesh every rank calls this with the same arguments, and
+        each option means what it means without one
+        (functionalmf_tpu/models/base.py:586-690, 751-814):
+
+        * ``traced_callback`` sees the global chain-batched state (each
+          entry all-gathered over dp and mp: one all-gather an entry and
+          split axis, every sweep) and the whole prepared data; every rank
+          calls it with the same generator, and keeps its part of the
+          state it returns and its slabs of the data (cut again only
+          where the hook returned another data object).
+        * a host ``callback`` runs on every rank: the model's properties
+          gather, its setters keep this rank's slice, and
+          ``mark_data_dirty`` prepares the data again, slabs included.
+        * ``collect_data_keys`` returns the global entry.
+        * a checkpoint holds the global state, draws and data: every rank
+          gathers, rank 0 writes, and every rank waits at a barrier. On
+          resume every rank reads the file and keeps its slices, so a
+          checkpoint resumes with or without a mesh, of any shape.
+        * ``profile_dir``: rank 0 writes ``trace.json``, rank r > 0
+          ``trace.rank<r>.json``.
         """
-        if self.mesh is not None:
-            self._check_mesh_run(callback=callback,
-                                 traced_callback=traced_callback,
-                                 collect_data_keys=tuple(collect_data_keys),
-                                 checkpoint_path=checkpoint_path,
-                                 resume=resume, profile_dir=profile_dir)
         if callback is not None and traced_callback is not None:
             raise ValueError("pass either callback (host) or traced_callback "
                              "(device), not both")
@@ -727,19 +830,22 @@ class BayesianTensorFiltering:
         step = collected = 0
         pending, chunks = [], []
         if checkpoint_path and resume and os.path.exists(checkpoint_path):
-            state, step, collected, chunks, pd_ck = self._load_checkpoint(
-                checkpoint_path, pdata_template=pdata if has_tc else None)
+            gstate, step, collected, chunks, pd_ck = self._load_checkpoint(
+                checkpoint_path,
+                pdata_template=self._whole_data(pdata) if has_tc else None)
+            state = self._shard(gstate)
             if pd_ck is not None:
-                pdata = pd_ck
+                pdata = self._cut_data(pd_ck)
             if verbose:
                 print("\tResumed at step {} ({} samples)".format(
                     step, collected))
 
         def snapshot():
             out = {k: state[k].clone() for k in self._collect_keys}
+            whole = self._whole_data(pdata)
             for k in collect_data_keys:
-                if isinstance(pdata, dict) and k in pdata:
-                    out["data:" + k] = pdata[k].clone()
+                if isinstance(whole, dict) and k in whole:
+                    out["data:" + k] = whole[k].clone()
                 else:
                     out[k] = state[k].clone()
             return out
@@ -755,9 +861,13 @@ class BayesianTensorFiltering:
                                for k, v in stacked.items()})
                 pending.clear()
             if checkpoint_path:
-                self._save_checkpoint(checkpoint_path, state, step,
-                                      collected, chunks,
-                                      pdata=pdata if has_tc else None)
+                gstate = self._gather(state, self._specs)
+                if self.mesh is None or self.mesh.rank == 0:
+                    self._save_checkpoint(
+                        checkpoint_path, gstate, step, collected, chunks,
+                        pdata=self._whole_data(pdata) if has_tc else None)
+                if self.mesh is not None:
+                    self.mesh.barrier()
 
         self._data_dirty = False
         while step < total:
@@ -770,8 +880,9 @@ class BayesianTensorFiltering:
                 while step < stop:
                     state = sweep(state, pdata, rng.at(SweepRNG.SWEEP, step))
                     if has_tc:
-                        state, pdata = traced_callback(
-                            state, pdata, rng.at(SweepRNG.HOOK, step), step)
+                        state, pdata = self._run_hook(
+                            traced_callback, state, pdata,
+                            rng.at(SweepRNG.HOOK, step), step)
                     elif callback is not None:
                         self._state = state
                         callback(self, data, step, **kwargs)
@@ -797,17 +908,20 @@ class BayesianTensorFiltering:
         self._report_run_health(results, verbose)
         return results
 
-    def _check_mesh_run(self, **opts):
-        """The run_gibbs options that wait under a mesh raise."""
-        for name, val in opts.items():
-            if val:
-                raise NotImplementedError(MESH_LATER.format(
-                    f"run_gibbs({name}=) under a mesh"))
+    def _run_hook(self, traced_callback, state, pdata, gen, step):
+        """The device-side hook on the global state and the whole data;
+        this rank keeps its part of what it returns."""
+        whole = self._whole_data(pdata)
+        gstate, new = traced_callback(self._gather(state, self._specs),
+                                      whole, gen, step)
+        return self._shard(gstate), (pdata if new is whole
+                                     else self._cut_data(new))
 
     @contextlib.contextmanager
     def _profiled(self, profile_dir):
         """torch.profiler around the block; the trace goes to
-        ``<profile_dir>/trace.json``."""
+        ``<profile_dir>/trace.json`` (``trace.rank<r>.json`` from rank
+        r > 0 of a mesh)."""
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -817,7 +931,9 @@ class BayesianTensorFiltering:
             yield
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        rank = 0 if self.mesh is None else self.mesh.rank
+        name = "trace.json" if rank == 0 else f"trace.rank{rank}.json"
+        prof.export_chrome_trace(os.path.join(profile_dir, name))
 
     def _format_results(self, outs, nsamples):
         """(nsamples, nchains, ...) -> chain-major (nchains*nsamples, ...);

@@ -69,29 +69,39 @@ float32 copy is made of each prepared tensor, when the first sweep reads
 it, and kept beside the stored one; nothing is converted at a launch.
 
 Under a device mesh (``mesh=``, models/base.py) the chains run over dp
-and, with a cellfn, W's rows and V's columns over mp; each rank keeps
-its row slab and its column slab of the data and of the EP centres
-(``prepare_data``, ``_init_ep``), and the fused kernels run at the
-rank's local shapes. Every draw is taken at its global shape and sliced.
-The collectives, site by site (each only where its axis is split):
+and W's rows and V's columns over mp; each rank keeps its row slab and
+its column slab of the EP centres (``_init_ep``) and, where
+``_Part.data_slab`` cuts it, of the data (``prepare_data``: always with a
+cellfn, whose fused kernels run at the rank's local shapes). A black-box
+likelihood gets the row (column) slab with ``row`` (``col``) its
+position in the slab, as in the JAX package's ``shard_map`` regions, or,
+where the pytree has a leaf that is not indexed by row (column), the
+whole pytree with global indices, as in its regions without
+``shard_map`` (constrained.py:518-541, 806-834); ``_data_split`` says
+which, for each update. Every draw is taken at its global shape and
+sliced. The collectives, site by site (each only where its axis is
+split):
 
 * W update: all-gather V over mp (its columns) for the constraint
   matrix and the candidates' cells; the rows are local.
 * V update, every schedule: all-gather W over mp (its rows) for the EP
   terms, the constraint operator and the candidates' cells; the
   columns are local.
-* scale moves: all-gather W over mp once; the V prior sums and every
-  full-tensor log-likelihood of the slice targets are all-reduce SUM
-  over mp, the brackets over the curve constraints all-reduce MIN / MAX,
-  so that every rank of a line takes the same branch. The row
-  constraints' brackets come from the gathered W, whole on every rank.
+* scale moves: all-gather W over mp once; the V prior sums and, with a
+  cellfn, every full-tensor log-likelihood of the slice targets are
+  summed over mp (an all-gather of per-column partial sums each), the
+  brackets over the curve constraints all-reduce MIN / MAX, so that
+  every rank of a line takes the same branch. The row constraints'
+  brackets come from the gathered W, whole on every rank. Without a
+  cellfn, V and tau are all-gathered over mp once, every rank evaluates
+  the user's full-tensor function on the whole data, and each value is
+  broadcast from the line's first rank.
 * the prior sweep's (models/base.py): sigma2, lam2 and the non-finite
   guard.
 
 The loops that end on a host read, the shrink method's (samplers/
 gass.py) and the jitter ladder's (``cholesky_psd``), hold no collective,
-so ranks may run them a different number of times. Without a cellfn only
-dp is supported (mp > 1 raises).
+so ranks may run them a different number of times.
 """
 from __future__ import annotations
 
@@ -102,8 +112,8 @@ import numpy as np
 import torch
 
 from functionalmf_tpu_torch._runtime import tree_leaves, tree_map
-from functionalmf_tpu_torch.models.base import (MESH_LATER,
-                                                BayesianTensorFiltering)
+from functionalmf_tpu_torch.models.base import (BayesianTensorFiltering,
+                                                _fixed_sum)
 from functionalmf_tpu_torch.ops.fused_ll import (
     KERNEL_CELLS, as_cellfn, ep_log_density, fused_col_block_ll_batched,
     fused_row_ll_batched)
@@ -166,11 +176,14 @@ class _Phase:
 
 
 class _Slabs:
-    """The prepared data under a mesh: this rank's rows (nr, m, T) and
-    its columns (n, nm, T), each contiguous."""
+    """The prepared data under a mesh: what the W update reads (this
+    rank's row slab, or the whole pytree) and the index of this rank's
+    first row in it; the same for the V update and the columns; and the
+    whole pytree."""
 
-    def __init__(self, rows, cols):
-        self.rows, self.cols = rows, cols
+    def __init__(self, rows, cols, whole, row0, col0):
+        self.rows, self.cols, self.whole = rows, cols, whole
+        self.row0, self.col0 = row0, col0
 
 
 class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
@@ -221,11 +234,6 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                 "simultaneously, which is only an exact Gibbs kernel "
                 "for likelihoods that factorize over the depth axis — "
                 "pass loglikelihood_cells")
-        mesh = kwargs.get("mesh")
-        if (mesh is not None and not has_cellfn
-                and mesh.size(MP_AXIS) > 1):
-            raise NotImplementedError(MESH_LATER.format(
-                "mp > 1 without a loglikelihood_cellfn"))
         # read by state_partition_specs while the base class places state
         self._has_row_constraints = Row_constraints is not None
         super().__init__(nrows, ncols, ndepth, **kwargs)
@@ -421,21 +429,42 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
     def prepare_data(self, data):
         """The data on the model's device, stored in ``data_dtype``
         (float32 unless given). With a cellfn: one (n, m, T) or
-        (n, m, T, 1) tensor; under a mesh, this rank's row and column
-        slabs of it (``_Slabs``). Without: any pytree of arrays (a dict,
-        tuple or list, or one array), as the user's likelihood reads it."""
-        y = self._prepare_whole(data)
-        if self.mesh is None or self.loglikelihood_cellfn is None:
-            return y
+        (n, m, T, 1) tensor. Without: any pytree of arrays (a dict,
+        tuple or list, or one array), as the user's likelihood reads it.
+        Under a mesh, a ``_Slabs`` of it (``_cut_data``)."""
+        return self._cut_data(self._prepare_whole(data))
+
+    def _cut_data(self, whole):
+        """Under a mesh, the ``_Slabs`` of the whole prepared pytree: the
+        row slab and the column slab where ``_Part.data_slab`` cuts them,
+        else the whole pytree at global indices; ``_data_split`` records
+        which ("slab" or "whole") for the W and the V update."""
         p = self._part
-        return _Slabs(y[p.r].contiguous() if p.split_r else y,
-                      y[:, p.m].contiguous() if p.split_m else y)
+        rows = None if self.mesh is None else p.data_slab(whole, 0)
+        cols = None if self.mesh is None else p.data_slab(whole, 1)
+        self._data_split = {"W": "whole" if rows is None else "slab",
+                            "V": "whole" if cols is None else "slab"}
+        if self.mesh is None:
+            return whole
+        return _Slabs(whole if rows is None else rows,
+                      whole if cols is None else cols, whole,
+                      p.r.start if rows is None else 0,
+                      p.m.start if cols is None else 0)
+
+    def _whole_data(self, pdata):
+        return pdata.whole if isinstance(pdata, _Slabs) else pdata
 
     @staticmethod
     def _rows_cols(y):
         """(rows, columns) of the prepared data: both ``y`` itself without
         a mesh."""
         return (y.rows, y.cols) if isinstance(y, _Slabs) else (y, y)
+
+    @staticmethod
+    def _first(y):
+        """(row0, col0): the index of this rank's first row in what the W
+        update reads, and of its first column in what the V update reads."""
+        return (y.row0, y.col0) if isinstance(y, _Slabs) else (0, 0)
 
     def _prepare_whole(self, data):
         dt = self.data_dtype or self.dtype
@@ -478,7 +507,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         """Data elements of one (row, column, time) cell: the largest data
         leaf's elements a cell (the replicates)."""
         cells = self.nrows * self.ncols * self.ndepth
-        most = max(leaf.numel() for leaf in tree_leaves(pdata))
+        most = max(leaf.numel()
+                   for leaf in tree_leaves(self._whole_data(pdata)))
         return max(1, most // cells)
 
     # ------------------------------------------------------------------
@@ -491,7 +521,6 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         nch, n, m, T, k = p.nc, p.nr, self.ncols, self.ndepth, self.nembeds
         B = nch * n
         V = p.all_cols(state["V"])
-        y = self._rows_cols(y)[0]
         # constraints from the opposite embedding, shared by the rows of a
         # chain up to the row's dim mask: A[(col, j), a] = sum_t CA[j, t]
         # V[col, t, a]; the Row_constraints rows [A | c] follow them
@@ -520,7 +549,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             loglik = self._w_loglik_blackbox(y, V, dmask)
         else:
             bt = V.reshape(nch, m * T, k)
-            y2 = self._f32(y).reshape(n, m * T)
+            y2 = self._f32(self._rows_cols(y)[0]).reshape(n, m * T)
             extras = tuple(e.reshape(n, m * T) for e in self._ep_r)
             cellfn = self.loglikelihood_cellfn
 
@@ -539,11 +568,14 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         """The W update's candidate log-likelihoods through the user's
         function (constrained.py:498-507): ``user_ll(data, tau_g, w_g, V,
         row=i)`` less the EP log-density of row i, lifted over candidates,
-        rows (in chunks) and chains."""
-        nch, n, m, T, k = (self._part.nc, self.nrows, self.ncols,
+        this rank's rows (in chunks) and chains; ``data`` and ``i`` the
+        row slab and a position in it, or the whole data and a global
+        index (``_cut_data``). V: (nch, m, T, k), every column."""
+        nch, n, m, T, k = (self._part.nc, self._part.nr, self.ncols,
                            self.ndepth, self.nembeds)
-        user_ll, ep = self.loglikelihood, self._ep
-        rows = torch.arange(n, device=self.device)
+        user_ll, ep = self.loglikelihood, self._ep_r
+        data, r0 = self._rows_cols(pdata)[0], self._first(pdata)[0]
+        rows = torch.arange(r0, r0 + n, device=self.device)
         work = m * T * self._data_work(pdata)
         vmap = torch.func.vmap
 
@@ -551,7 +583,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             tau = torch.einsum("gk,mtk->gmt", cands_i, V_c)
 
             def one(tau_g, w_g):
-                ll = user_ll(pdata, tau_g, w_g, V_c, row=i, col=None)
+                ll = user_ll(data, tau_g, w_g, V_c, row=i, col=None)
                 if ep_i:
                     ll = ll - ep_log_density(tau_g, *ep_i).sum()
                 return ll
@@ -607,13 +639,17 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                                 attempts=opts["force_psd_attempts"]
                                 if opts["force_psd"] else 0), None
         mask = self._wmask_rows
-        Vf = V.reshape(nch, -1, k)
+        # products summed over x in a fixed order (_fixed_sum): a row's
+        # terms then have the same bits whatever the number of chains and
+        # rows a rank holds, as under a mesh (a contraction of every row at
+        # once is ordered by the batch's shape)
+        Vf = V.reshape(nch, 1, -1, k)
         sinv2, mu_sinv2 = self._ep_prec_r
-        s2 = sinv2.reshape(n, -1)
-        Q = (torch.einsum("ix,cxa,cxb->ciab", s2, Vf, Vf)
+        SV = Vf * sinv2.reshape(1, n, -1, 1)                 # (nch,n,x,k)
+        Q = (_fixed_sum(SV[..., :, None] * Vf[..., None, :], (2,))[:, :, 0]
              * mask[:, :, None] * mask[:, None, :] + prior)
-        mu_part = torch.einsum("ix,cxa->cia", mu_sinv2.reshape(n, -1),
-                               Vf) * mask
+        mu_part = _fixed_sum(Vf * mu_sinv2.reshape(1, n, -1, 1),
+                             (2,))[:, :, 0] * mask
         L = self._chol(Q)
         return L, _cho_solve(L, mu_part)
 
@@ -647,15 +683,19 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         * else whole curves rebuilt around the block, ``user_ll(data,
           tau_g, W, V_g, col=j)`` (constrained.py:767-791).
 
-        Each less the EP log-density over the cells it covers."""
-        nch, n, m, T, k = (self._part.nc, self.nrows, self.ncols,
+        Each less the EP log-density over the cells it covers. The items
+        are this rank's columns; ``data`` and ``col`` the column slab and a
+        position in it, or the whole data and a global index
+        (``_cut_data``). W: (nch, n, k), every row; X: this rank's V."""
+        nch, n, m, T, k = (self._part.nc, self.nrows, self._part.nm,
                            self.ndepth, self.nembeds)
         nblk, size = len(ph.starts), ph.size
         user_ll, user_blk, user_cells = (
             self.loglikelihood, self.loglikelihood_block,
             self.loglikelihood_cells)
-        ep = tuple(e.permute(1, 0, 2) for e in self._ep)     # (m, n, T)
-        cols = torch.arange(m, device=self.device)
+        ep = tuple(e.permute(1, 0, 2) for e in self._ep_m)   # (m, n, T)
+        data, c0 = self._rows_cols(pdata)[1], self._first(pdata)[1]
+        cols = torch.arange(c0, c0 + m, device=self.device)
         t0s = torch.as_tensor(ph.starts, device=self.device)
         vmap = torch.func.vmap
         if user_cells is None and nblk != 1:
@@ -674,7 +714,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             tau = torch.einsum("gtk,nk->gnt", cands_b, W_c)
 
             def one(tau_g, Vb_g):
-                return user_cells(pdata, tau_g, W_c, Vb_g, col=j, t0=t0,
+                return user_cells(data, tau_g, W_c, Vb_g, col=j, t0=t0,
                                   size=size) - ep_term(tau_g, ep_j, tid)
 
             return vmap(one)(tau, cands_b)
@@ -690,7 +730,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                 ep_b = tuple(e[:, s0:e0] for e in ep_j)
 
                 def one(tau_g, Vb_g):
-                    return user_blk(pdata, tau_g, W_c, Vb_g, row=None, col=j,
+                    return user_blk(data, tau_g, W_c, Vb_g, row=None, col=j,
                                     tslice=(s0, e0)) - ep_term(tau_g, ep_b)
 
                 return vmap(one)(tau, cands_b)[None]
@@ -700,7 +740,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             tau = torch.einsum("gtk,nk->gnt", Vg, W_c)
 
             def one(tau_g, V_g):
-                return user_ll(pdata, tau_g, W_c, V_g, row=None,
+                return user_ll(data, tau_g, W_c, V_g, row=None,
                                col=j) - ep_term(tau_g, ep_j)
 
             return vmap(one)(tau, Vg)[None]
@@ -725,8 +765,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         if not self._ep:
             return None, None
         sinv2, mu_sinv2 = self._ep_prec_m
-        G = torch.einsum("ijt,cia,cib->cjtab", sinv2, W, W)
-        mu_part = torch.einsum("ijt,cia->cjta", mu_sinv2, W)
+        # products summed over the rows in a fixed order, as the W
+        # proposal's (_w_proposal)
+        Wb = W[:, None, None]                               # (nch,1,1,n,k)
+        SW = Wb * sinv2.permute(1, 2, 0)[None, ..., None]   # (nch,m,T,n,k)
+        G = _fixed_sum(SW[..., :, None] * Wb[..., None, :], (3,))[:, :, :, 0]
+        mu_part = _fixed_sum(Wb * mu_sinv2.permute(1, 2, 0)[None, ..., None],
+                             (3,))[:, :, :, 0]
         return G, mu_part
 
     def _block_gaussian(self, DtLD, G, mu_part, X_out, tidx, z):
@@ -764,7 +809,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
 
     def _phase_update(self, X, W, DtLD, G, mu_part, y, ph, gen):
         """One round over this rank's (chain, column, block) items; W
-        whole, X, DtLD, G, mu_part and y this rank's columns."""
+        whole, X, DtLD, G and mu_part this rank's columns, y the prepared
+        data."""
         nch, m, k = self._part.nc, self._part.nm, self.nembeds
         nblk, size = len(ph.starts), ph.size
         D = size * k
@@ -794,9 +840,11 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         if self.loglikelihood_cellfn is None:
             loglik = self._v_loglik_blackbox(y, W, X, ph)
         else:
+            y_cols = self._rows_cols(y)[1]
+
             def loglik(cands):               # (B, G, D) -> (B, G)
                 G = cands.shape[1]
-                return self._blocks_loglik(W, y, ph,
+                return self._blocks_loglik(W, y_cols, ph,
                                            cands.reshape(B, G, size, k))
 
         Xb_cur = X[:, :, tidx, :].reshape(B, D)
@@ -814,8 +862,6 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         DtLD = self._v_prior_dtld(state["lam2"], state["Tau2"])
         G, mu_part = self._v_ep_terms(W)
         X = state["V"]
-        if isinstance(y, _Slabs):
-            y = y.cols
         for ph in self._phases:
             X = self._phase_update(X, W, DtLD, G, mu_part, y, ph, gen)
         return dict(state, V=X)
@@ -914,7 +960,11 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         """functionalmf_tpu/models/constrained.py:1020-1338, every chain
         at once (per-chain scalars are (nchains,) tensors). Under a mesh
         W is gathered whole once; tau, V and the data are this rank's
-        columns, and the column sums reduce over mp."""
+        columns, and the column sums reduce over mp. The user's
+        full-tensor function (no cellfn) gets V and tau gathered whole
+        (``V_w``, ``tau_w``) and the whole data, and its value is
+        broadcast over mp, so that every rank of a line takes the slice
+        moves' branches alike."""
         p = self._part
         nch, k = p.nc, self.nembeds
         dev = self.device
@@ -925,7 +975,6 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         zeros = torch.zeros(nch, device=dev)
         c4 = (slice(None), None, None, None)
         RC = state["Row_constraints"] if self._has_row_constraints else None
-        y = self._rows_cols(y)[1]
 
         if self.sample_W and self.sample_V:
             inv_tau2 = 1.0 / torch.clamp(state["Tau2"], self.stability,
@@ -1023,16 +1072,25 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         # (terms of y alone are constant in the rescale), else the user's
         # function on the rescaled tau, W and V (constrained.py:1256-1266)
         cellfn, user_ll = self.loglikelihood_cellfn, self.loglikelihood
+        V_w, tau_w = V, tau
         if cellfn is not None:
-            y32 = self._f32(y)
+            y32 = self._f32(self._rows_cols(y)[1])
 
             def full_ll(tau_s, W_s, V_s):
-                return p.cols_sum(cellfn(y32[None], tau_s), (1, 2, 3))
+                # a column's sum in one reduction (34 calls a sweep: no
+                # fixed-order sum here), then the columns' over mp
+                return p.cols_sum(cellfn(y32[None], tau_s).sum((1, 3)), (1,))
         else:
+            whole = self._whole_data(y)
+            if p.split_m:
+                V_w, tau_w = p.all_cols(V), p.all_cols(tau, dim=2)
+
             def full_ll(tau_s, W_s, V_s):
-                return torch.func.vmap(
-                    lambda t, w, v: user_ll(y, t, w, v, row=None, col=None))(
-                        tau_s, W_s, V_s)
+                ll = torch.func.vmap(
+                    lambda t, w, v: user_ll(whole, t, w, v, row=None,
+                                            col=None))(tau_s, W_s, V_s)
+                return ll if self.mesh is None else self.mesh.broadcast(
+                    ll, MP_AXIS)
 
         if self.sample_lam2 and self.sample_V:
             x0 = torch.log(torch.clamp(state["lam2"], min=1e-20))
@@ -1049,12 +1107,13 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             def logdens(x):
                 s = torch.exp(0.5 * (x - x0))
                 return (-0.5 * x - torch.exp(-x) * inv_a
-                        + full_ll(s[c4] * tau, W, s[c4] * V))
+                        + full_ll(s[c4] * tau_w, W, s[c4] * V_w))
 
             x_new, _ = self._slice_1d(x0, logdens, lo, hi, gen)
             s = torch.exp(0.5 * (x_new - x0))
             V = V * s[c4]
             tau = tau * s[c4]
+            V_w, tau_w = V_w * s[c4], tau_w * s[c4]
             if Av is not None:
                 Av = Av * s[:, None]
             state = dict(state, lam2=torch.exp(x_new), V=V)
@@ -1067,7 +1126,7 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             def logdens(x):
                 s = torch.exp(0.5 * (x - x0))
                 return (-a * x - b * torch.exp(-x)
-                        + full_ll(s[c4] * tau, s[c4[:3]] * W, V))
+                        + full_ll(s[c4] * tau_w, s[c4[:3]] * W, V_w))
 
             x_new, _ = self._slice_1d(x0, logdens, lo, hi, gen)
             s = torch.exp(0.5 * (x_new - x0))

@@ -26,7 +26,7 @@ tensor on every rank of an mp line, from W and V all-gathered over mp:
 they draw and sum what the unsharded run does, and need no other
 collective. The W update is row-local (V all-gathered), the V update's
 banded factorisation column-local (W all-gathered); its repair counts
-are all-reduced (SUM) over mp.
+are summed over mp (``_Part.cols_sum``).
 """
 from __future__ import annotations
 

@@ -7,13 +7,20 @@ the trend-filtering prior, with a user-supplied
     loglikelihood(W, V, data) -> 0-d tensor
 
 for ONE chain (W (n, k), V (m, T, k), ``data`` the prepared pytree on the
-model's device). The model lifts it over the chains with
-``torch.func.vmap``, so it must be made of operations with a batching
-rule; plain PyTorch on the card, as the JAX path is plain XLA. The
+model's device). The model calls it a chain at a time (``_lifted``; the
+JAX package vmaps it); plain PyTorch on the card, as the JAX path is
+plain XLA. The
 ellipse runs in the natural (masked) array shapes, and the V prior draws
-come from one batched dense Cholesky. Under a device mesh the chains run
-over dp, every draw taken for every chain; mp > 1 waits (ROADMAP.md,
-Queue 1) and raises.
+come from one batched dense Cholesky.
+
+Under a device mesh the chains run over dp and W's rows and V's columns
+over mp, every draw taken for every chain at its global shape. The
+user's function is one opaque whole-tensor function, so an update
+all-gathers W and V (and, for V's prior draw, Tau2) over mp, runs one
+joint ESS step over the global arrays on every rank of an mp line with
+the same noise, broadcasts the line's first rank's result (so that the
+line agrees even where ranks round differently) and keeps this rank's
+slice. The ESS loop ends on a host read and holds no collective.
 """
 from __future__ import annotations
 
@@ -21,8 +28,7 @@ import numpy as np
 import torch
 
 from functionalmf_tpu_torch._runtime import tree_map
-from functionalmf_tpu_torch.models.base import (MESH_LATER,
-                                                BayesianTensorFiltering)
+from functionalmf_tpu_torch.models.base import BayesianTensorFiltering
 from functionalmf_tpu_torch.parallel.mesh import MP_AXIS
 from functionalmf_tpu_torch.samplers.ess import (draw_ess_noise,
                                                  elliptical_slice)
@@ -37,10 +43,6 @@ class NonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
 
     def __init__(self, nrows, ncols, ndepth, loglikelihood,
                  ess_max_iters=100, **kwargs):
-        mesh = kwargs.get("mesh")
-        if mesh is not None and mesh.size(MP_AXIS) > 1:
-            raise NotImplementedError(MESH_LATER.format(
-                "mp > 1 for NonconjugateBayesianTensorFiltering"))
         super().__init__(nrows, ncols, ndepth, **kwargs)
         self.loglikelihood = loglikelihood
         self.ess_max_iters = int(ess_max_iters)
@@ -56,9 +58,14 @@ class NonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         return tree_map(leaf, data)
 
     def _lifted(self, data):
-        """(W (nch, n, k), V (nch, m, T, k)) -> (nch,)."""
+        """(W (nch, n, k), V (nch, m, T, k)) -> (nch,): the user's function
+        a chain at a time. A call over every chain at once would order the
+        whole-tensor sums by the number of chains it holds (on the card),
+        and a rank of a mesh holds some of them: this way a chain's value
+        is the same however the chains are spread."""
         user_ll = self.loglikelihood
-        return torch.func.vmap(lambda W, V: user_ll(W, V, data))
+        return lambda W, V: torch.stack([user_ll(W[c], V[c], data)
+                                         for c in range(W.shape[0])])
 
     # ------------------------------------------------------------------
     def _ess_noise(self, gen):
@@ -68,34 +75,39 @@ class NonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         take = self._part.take
         return take(log_u, "c"), take(u_phi, "c"), take(u, ".c")
 
+    def _ess(self, x, prior, loglik, gen):
+        """One joint ESS step of the global ``x`` (this rank's chains),
+        the line's first rank's result on every rank of an mp line."""
+        x, _ = elliptical_slice(x, prior, loglik, gen,
+                                max_iters=self.ess_max_iters,
+                                noise=self._ess_noise(gen))
+        return x if self.mesh is None else self.mesh.broadcast(x, MP_AXIS)
+
     def _update_W_ess(self, state, data, gen):
         """factor.py:572-582: a prior draw from N(0, sigma2 I) on the
         lower-triangular support, then one joint ESS step over all of W."""
-        mask, V = self._wmask, state["V"]
-        z = self._part.take(torch.randn(
+        p, mask = self._part, self._wmask
+        W, V = p.all_rows(state["W"]), p.all_cols(state["V"])
+        z = p.take(torch.randn(
             (self.nchains, self.nrows, self.nembeds), generator=gen,
             device=self.device), "c")
         prior = z * torch.sqrt(state["sigma2"])[:, None, None] * mask
         ll = self._lifted(data)
-        x, _ = elliptical_slice(state["W"], prior,
-                                lambda Wf: ll(Wf * mask, V), gen,
-                                max_iters=self.ess_max_iters,
-                                noise=self._ess_noise(gen))
-        return dict(state, W=x * mask)
+        x = self._ess(W, prior, lambda Wf: ll(Wf * mask, V), gen)
+        return dict(state, W=p.take(x * mask, ".r"))
 
     def _update_V_ess(self, state, data, gen):
         """factor.py:584-590: a prior draw from the block trend-filtering
         precision (batched over columns), then one joint ESS step over V."""
-        nch, m, k, T = self._part.nc, self.ncols, self.nembeds, self.ndepth
-        draw = self._sample_v_prior(gen, state["lam2"], state["Tau2"],
-                                    local=True)
+        p = self._part
+        nch, m, k, T = p.nc, self.ncols, self.nembeds, self.ndepth
+        draw = self._sample_v_prior(gen, state["lam2"],
+                                    p.all_cols(state["Tau2"]), dims="c")
         prior = draw.reshape(nch, m, k, T).transpose(-1, -2)   # (nch,m,T,k)
-        W = state["W"]
+        W, V = p.all_rows(state["W"]), p.all_cols(state["V"])
         ll = self._lifted(data)
-        x, _ = elliptical_slice(state["V"], prior, lambda Vf: ll(W, Vf), gen,
-                                max_iters=self.ess_max_iters,
-                                noise=self._ess_noise(gen))
-        return dict(state, V=x.contiguous())
+        x = self._ess(V, prior, lambda Vf: ll(W, Vf), gen)
+        return dict(state, V=p.take(x, ".m").contiguous())
 
     def _make_sweep(self):
         def sweep(state, pdata, gen):

@@ -86,6 +86,12 @@ class Mesh:
     def index(self, axis: str) -> int:
         return self.coords[axis]
 
+    @property
+    def rank(self) -> int:
+        """This rank's place in the process group, i_dp * n_mp + i_mp."""
+        return (self.coords[DP_AXIS] * self.shape[MP_AXIS]
+                + self.coords[MP_AXIS])
+
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0):
         """The blocks of ``x`` of every rank of this rank's ``axis`` line,
         concatenated along ``dim`` in mesh order."""
@@ -106,6 +112,22 @@ class Mesh:
         out = x.contiguous().clone()
         dist.all_reduce(out, op=_OPS[op], group=group)
         return out
+
+    def broadcast(self, x: torch.Tensor, axis: str):
+        """``x`` of the first rank of this rank's ``axis`` line, on every
+        rank of the line; a new tensor."""
+        group = self._groups[axis]
+        if group is None:
+            return x
+        out = x.contiguous().clone()
+        dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
+        return out
+
+    def barrier(self):
+        """Wait until every rank of the mesh gets here (a mesh of one rank,
+        which has no process group, does not wait)."""
+        if self.shape[DP_AXIS] * self.shape[MP_AXIS] > 1:
+            dist.barrier()
 
 
 def make_mesh(n_dp: int = 1, n_mp: int | None = None,

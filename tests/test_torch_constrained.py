@@ -671,25 +671,30 @@ def _mp2_mesh():
     return Mesh(1, 2, {"dp": 0, "mp": 0}, "cpu", {"dp": None, "mp": None})
 
 
-@pytest.mark.parametrize("kw, match", [
-    (dict(mesh="mp2", loglikelihood_cellfn=None, v_schedule="seq"),
-     "mesh"),
+@pytest.mark.parametrize("kw, split", [
+    pytest.param(dict(mesh="mp2", loglikelihood_cellfn=None,
+                      v_schedule="seq"),
+                 {"W": "slab", "V": "whole"}, id="kw0-mesh"),
 ])
-def test_out_of_slice_options_raise(kw, match):
-    """What the port still lacks raises NotImplementedError: since the
-    mesh was ported, the model without a cellfn on an mp > 1 mesh. (A
-    model without a cellfn and Row_constraints, refused here until they
-    were ported, are tested above; the other mesh errors in
-    tests/test_torch_mesh.py.)"""
+def test_out_of_slice_options_raise(kw, split):
+    """Nothing that the slices once lacked raises any more. The last of
+    it, the model without a cellfn on an mp > 1 mesh, builds, and its
+    prepared data follows ``_Part.data_slab``: the 4 rows split over mp=2
+    give each rank a row slab, the 3 columns stay whole. (Runs on such a
+    mesh: tests/test_torch_mesh_blackbox.py.)"""
     if kw.get("mesh") == "mp2":
         kw = dict(kw, mesh=_mp2_mesh())
     n, m, T, k = 4, 3, 6, 2
-    _, C, W0, V0, _ = _problem(1, n, m, T, k)
+    Y, C, W0, V0, _ = _problem(1, n, m, T, k)
     args = dict(nembeds=k, tf_order=0, W_init=W0, V_init=V0, v_block_size=3,
                 v_schedule="redblack", loglikelihood_cellfn=POISSON)
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=match):
-        TorchModel(n, m, T, torch_loglik, C, device="cpu", **args)
+    model = TorchModel(n, m, T, torch_loglik, C, device="cpu", **args)
+    pdata = model.prepare_data(Y)
+    assert model._data_split == split
+    assert tuple(pdata.rows.shape) == (2, m, T)
+    assert pdata.cols is pdata.whole
+    assert (pdata.row0, pdata.col0) == (0, 0)
 
 
 def test_device_defaults_to_the_card():

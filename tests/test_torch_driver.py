@@ -169,19 +169,26 @@ def test_driver_options_run_on_the_constrained_model(tmp_path):
 
 
 def test_out_of_slice_driver_options_raise(tmp_path):
-    """What the port's driver still lacks raises: since the mesh was
-    ported, checkpoint_path under a mesh (every option that waits there is
-    in tests/test_torch_mesh.py). (callback and checkpoint_path, refused
-    here until they were ported, are held to their contracts above and in
-    tests/test_torch_callbacks.py.)"""
+    """Nothing the port's driver once lacked raises any more; the last of
+    it, checkpoint_path under a mesh, writes the global state: a run on a
+    (1, 1) mesh point cut after 1 of 3 draws resumes without a mesh to the
+    uncut draws. (The options on a (2, 2) mesh of ranks:
+    tests/test_torch_mesh_driver.py.)"""
     from functionalmf_tpu_torch.parallel.mesh import Mesh
     Y, C, kw = _data()
     mesh = Mesh(1, 1, {"dp": 0, "mp": 0}, "cpu", {"dp": None, "mp": None})
     model = TorchModel(N, M, T, _torch_loglik, C, device="cpu",
                        loglikelihood_cellfn=POISSON, mesh=mesh, **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        model.run_gibbs(Y, nburn=0, nsamples=1, verbose=False,
-                        checkpoint_path=str(tmp_path / "ck.npz"))
+    ck = str(tmp_path / "ck.npz")
+    model.run_gibbs(Y, nburn=2, nthin=2, nsamples=1, verbose=False,
+                    checkpoint_path=ck)
+    full = _torch_model()[0].run_gibbs(Y, nburn=2, nthin=2, nsamples=3,
+                                       verbose=False)
+    resumed = _torch_model()[0].run_gibbs(
+        Y, nburn=2, nthin=2, nsamples=3, verbose=False, checkpoint_path=ck,
+        resume=True)
+    for key in ("W", "V", "lam2", "sigma2", "Tau2"):
+        np.testing.assert_array_equal(resumed[key], full[key])
 
 
 def test_device_is_required():

@@ -5,12 +5,14 @@
   mesh sizes.
 * Each model's ``state_partition_specs()`` equals the JAX model's, built
   with the same arguments, and covers every state key.
-* What waits under a mesh raises NotImplementedError naming its
-  ROADMAP.md item; a model whose device is not the mesh's raises.
+* A model whose device is not the mesh's raises.
 * Two builders started at once compile once (the build directory's lock).
 
-The runs on spawned ranks are in tests/test_torch_mesh_runs.py and
-tests/test_torch_mesh_jax.py."""
+The runs on spawned ranks are in tests/test_torch_mesh_runs.py,
+tests/test_torch_mesh_chains.py, tests/test_torch_mesh_jax.py and, for the
+black-box models and the driver's options, tests/test_torch_mesh_blackbox.py,
+tests/test_torch_mesh_blackbox_jax.py, tests/test_torch_mesh_nonconjugate.py
+and tests/test_torch_mesh_driver.py."""
 import itertools
 import os
 import subprocess
@@ -121,41 +123,6 @@ def test_state_partition_specs_match_jax():
         assert tm._shard_specs() == got, name
         seen.append(name)
     assert len(seen) == 8
-
-
-@pytest.mark.parametrize("opt", [
-    dict(callback=lambda model, data, step: None),
-    dict(traced_callback=lambda st, pd, gen, step: (st, pd)),
-    dict(collect_data_keys=("Row_constraints",)),
-    dict(checkpoint_path="ck.npz"),
-    dict(resume=True),
-    dict(profile_dir="prof"),
-])
-def test_driver_options_wait_under_a_mesh(opt, tmp_path):
-    """The hooks, checkpoints and the profiler raise under a mesh
-    (ROADMAP.md, Queue 1); a (1, 1) mesh needs no process group."""
-    from tests.torch_mesh_ranks import constrained_model
-    opt = {k: (str(tmp_path / v) if isinstance(v, str) else v)
-           for k, v in opt.items()}
-    model, Y = constrained_model("redblack", mesh=_fake_mesh(1, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        model.run_gibbs(Y, nburn=0, nsamples=1, verbose=False, **opt)
-
-
-def test_mp_waits_for_the_nonconjugate_model():
-    from tests.torch_mesh_ranks import family_model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        family_model("nonconjugate", mesh=_fake_mesh(1, 2))
-
-
-def test_blackbox_constrained_model_waits_for_mp():
-    from tests.torch_mesh_ranks import poisson_problem, torch_loglik
-    from functionalmf_tpu_torch import (
-        ConstrainedNonconjugateBayesianTensorFiltering as Model)
-    Y, C, W0, V0, _ = poisson_problem(0, 4, 4, 6, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        Model(4, 4, 6, torch_loglik, C, device="cpu", nembeds=2,
-              W_init=W0, V_init=V0, mesh=_fake_mesh(1, 2))
 
 
 def test_device_must_be_the_mesh_device():

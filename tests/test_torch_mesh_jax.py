@@ -8,14 +8,21 @@ and the seq schedule (blocks of 4 and 2), and the port's draw sites give
 back the draws that JAX takes from its keys (the proposal, then log u and
 the Gumbel scores; a round's block normals, then its log u and Gumbels),
 as the port's unsharded step tests do (tests/test_torch_constrained.py).
-Tolerance: atol = 1e-5, that of the unsharded step tests."""
+Tolerance: atol = 1e-5, that of the unsharded step tests.
+``jax_mesh_steps`` is shared with tests/test_torch_mesh_blackbox_jax.py,
+which runs the same steps through the black-box likelihood alone."""
 import numpy as np
 
 from tests.torch_mesh_ranks import (SCHEDULES, poisson_problem,
                                     rank_jax_step, spawn_ranks)
 
 
-def test_sharded_steps_match_jax_shard_map_regions(tmp_path, monkeypatch):
+def jax_mesh_steps(monkeypatch, cellfn):
+    """The JAX model's state, the draws its steps take and the W and V
+    its W step and seq V step return, per chain, on a (2, 2) mesh of
+    virtual CPU devices; with ``cellfn`` the fused cell function, else
+    the black-box likelihood alone (whose single-tensor data JAX cuts
+    into row and column slabs)."""
     import jax
     import jax.numpy as jnp
     from jax.scipy.special import gammaln
@@ -45,7 +52,8 @@ def test_sharded_steps_match_jax_shard_map_regions(tmp_path, monkeypatch):
     cfg = dict(SCHEDULES["seq_ep"])
     cfg.pop("ep")
     jm = ConstrainedNonconjugateBayesianTensorFiltering(
-        n, m, T, jax_loglik, C, loglikelihood_cellfn=jax_cellfn,
+        n, m, T, jax_loglik, C,
+        loglikelihood_cellfn=jax_cellfn if cellfn else None,
         mesh=make_mesh(2, 2), ep_approx=ep, nembeds=k, tf_order=1,
         sigma2_init=0.5, lam2_init=0.1, W_init=W0, V_init=V0,
         gass_ngrid=ngrid, seed=5, nchains=nch, **cfg)
@@ -93,11 +101,24 @@ def test_sharded_steps_match_jax_shard_map_regions(tmp_path, monkeypatch):
     v_noise = [(np.stack(r["z"])[:, :, None],
                 np.asarray(r["log_u"], np.float32), np.stack(r["gumbel"]))
                for r in rounds]
+    return (state, np.stack(v), w_noise, v_noise, np.stack(want_W),
+            np.stack(want_V))
 
-    outs = spawn_ranks(rank_jax_step, 4, tmp_path, state, np.stack(v),
-                       w_noise, v_noise)
+
+def check_mesh_steps(tmp_path, monkeypatch, cellfn):
+    """The port's sharded steps on 4 ranks against JAX's; the ranks'
+    outputs."""
+    state, v, w_noise, v_noise, want_W, want_V = jax_mesh_steps(
+        monkeypatch, cellfn)
+    outs = spawn_ranks(rank_jax_step, 4, tmp_path, state, v, w_noise,
+                       v_noise, cellfn)
     for o in outs:
-        np.testing.assert_allclose(o["W"], np.stack(want_W), atol=1e-5)
-        np.testing.assert_allclose(o["V"], np.stack(want_V), atol=1e-5)
+        np.testing.assert_allclose(o["W"], want_W, atol=1e-5)
+        np.testing.assert_allclose(o["V"], want_V, atol=1e-5)
     assert not np.allclose(outs[0]["W"], state["W"])
     assert not np.allclose(outs[0]["V"], state["V"])
+    return outs
+
+
+def test_sharded_steps_match_jax_shard_map_regions(tmp_path, monkeypatch):
+    check_mesh_steps(tmp_path, monkeypatch, cellfn=True)

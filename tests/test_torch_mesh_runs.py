@@ -11,11 +11,13 @@ whole on every rank, as JAX replicates it), a longer run, and the
 Gaussian (scalar, per-row and fixed heteroskedastic nu2), Binomial and
 NegBinom models at 6x4x12, k=2, nchains=2.
 
-Tolerance. A sharded run draws what the unsharded run draws and differs
-only by the order of its sums over rows and columns (all-reduce over mp):
-after 1 + 1 sweeps W, V, sigma2 and lam2 (and nu2 and R) agree within
-rtol = atol = 1e-3, JAX's own bound for its sharded run (measured here:
-about 1e-5 relative). Every rank returns the same results dict."""
+Tolerance. A sharded run draws what the unsharded run draws, and its
+sums over rows and columns run in a fixed order
+(``models/base.py:_Part._sum``): after 1 + 1 sweeps W, V, sigma2 and lam2
+(and nu2 and R) agree within rtol = atol = 1e-3, JAX's own bound for its
+sharded run (measured here: the constrained runs to the bit; the
+Gaussian family's banded V update rounds by a rank's batch shapes).
+Every rank returns the same results dict."""
 import numpy as np
 import pytest
 
