@@ -32,23 +32,31 @@ Phases (any failure raises and exits non-zero before the last line):
      P=280 or 20, Tb=8; the counters each rank sends back; the Gaussian
      path none), all ranks return the same draws, W and V agree with the
      unsharded run on the card within rtol = atol = 1e-3 (on the GASS
-     paths but for picks that flip: at most 1% of the values), every
-     recipe draw feasible; the phase's seconds, the sweeps/s on the mesh
-     beside the unsharded run's and the collectives a sweep; (c) the same
-     four ranks, (2, 2): the dose-response model as the app builds it at
-     98x50x9x6, k=5, from a warm start made of the data (no NMF), on
-     {Y, X, U} with the app's device U hook rewriting Row_constraints and
-     U collected (both updates read the whole data at global indices),
-     and on {Y} (row and column slabs, local positions), then ESS at
-     20x20x228, k=5, nchains=4, each 1 + 1 sweeps against the unsharded
-     run on the card (dose-response: at most 1% of W, V and U beyond
-     1e-3, every draw inside its curve and row constraints; ESS: W and V
-     within 1e-5), then 5 timed sweeps; and the recipe at 20x20x228 cut
-     after 3 sweeps and resumed from its checkpoint, equal to the uncut
-     mesh run bit for bit, and a profiled sweep that leaves one trace a
-     rank; one line a part (seconds, sweeps/s on the mesh and unsharded,
-     collectives a sweep, the gathers that hand the hook the global
-     state, the branch each update took);
+     paths but for picks that flip: at most 1% of the values), also
+     after 5 more timed sweeps, every recipe draw feasible; the count
+     beyond 1e-3, the phase's seconds, the sweeps/s on the mesh beside the
+     unsharded run's and the collectives a sweep; (c) first two probes on
+     the card, a rank's block of sums against the whole tensor's (torch.sum,
+     _fixed_sum, _window_sum; the Gaussian W Gram by @ and _fixed_sum) and
+     the fused kernels on a rank's items alone against the same items
+     inside the unsharded launch (torch.equal; the fixed sums and the
+     kernels may not differ); then the same four ranks, (2, 2): the
+     dose-response model as the app builds it at 98x50x9x6, k=5, from a
+     warm start made of
+     the data (no NMF), on {Y, X, U} with the app's device U hook
+     rewriting Row_constraints and U collected (both updates read the
+     whole data at global indices), and on {Y} (row and column slabs,
+     local positions), then ESS at 20x20x228, k=5, nchains=4, each 1 + 1
+     sweeps against the unsharded run on the card (dose-response: at most
+     1% of W, V and U beyond 1e-3, every draw inside its curve and row
+     constraints; ESS: W and V within 1e-5), then 5 timed sweeps; and the
+     recipe at 20x20x228 cut after 3 sweeps and resumed from its
+     checkpoint, equal to the uncut mesh run bit for bit and, after its
+     2 + 4 sweeps, held to the unsharded run as the dose-response model
+     is, and a profiled sweep that leaves one trace a rank; one line a
+     part (seconds, sweeps/s on the mesh and unsharded, collectives a
+     sweep, the gathers that hand the hook the global state, the branch
+     each update took, the count beyond 1e-3);
   4. politics: the port's app (functionalmf_tpu_torch.apps.politics.
      benchmark) on its synthetic 19x19x228 tensor, EP on, with the seq
      schedule (nchains=1), the red-black schedule (nchains=4) and the joint
@@ -621,12 +629,13 @@ def gloo_rank(rank, world, prob):
         for c in calls.values():
             c[:] = [0, 0.0]
         t0 = time.perf_counter()
-        model.run_gibbs(Y, nburn=MESH_TIMED - 1, nthin=1, nsamples=1,
-                        verbose=False)
+        timed = model.run_gibbs(Y, nburn=MESH_TIMED - 1, nthin=1, nsamples=1,
+                                verbose=False)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         out[path] = dict(
-            res=_numpy_results(res), launches=launches, shapes=seen,
+            res=_numpy_results(res), timed=_numpy_results(timed),
+            launches=launches, shapes=seen,
             slack=(model._worst_constraint_slack() if path != "gaussian"
                    else 0.0), seconds=dt,
             collectives={k: (c[0] / MESH_TIMED, 1e3 * c[1] / MESH_TIMED)
@@ -639,13 +648,15 @@ def mesh_gloo_phase(dev):
     the GDELT-shaped recipe data at 20x20x228, k=5, nchains=4, ngrid 100:
     the red-black recipe and the seq schedule with EP centres, and the
     Gaussian model on the Gaussian phase's data at 20x20x228, 1 + 1 sweeps
-    each. Every rank launches both kernels of its path at its local shape
-    (the Gaussian path none); every rank returns the same draws, and W and
-    V agree with the unsharded run on the card within rtol = atol = 1e-3
-    (tests/test_torch_mesh_runs.py) but, on the GASS paths, for the picks
-    that flip (at most MESH_FAR_MAX of the values); every recipe draw is
-    feasible. Prints the phase's seconds and the sweeps/s on the mesh
-    beside the unsharded run's at the same width."""
+    each, then MESH_TIMED timed sweeps. Every rank launches both kernels
+    of its path at its local shape (the Gaussian path none); every rank
+    returns the same draws, and W and V agree with the unsharded run on
+    the card within rtol = atol = 1e-3 (tests/test_torch_mesh_runs.py)
+    after the 1 + 1 sweeps and after the timed ones but, on the GASS
+    paths, for the picks that flip (at most MESH_FAR_MAX of the values;
+    none on the Gaussian path); every recipe draw is feasible. Prints the
+    phase's seconds and the sweeps/s on the mesh beside the unsharded
+    run's at the same width."""
     t0 = time.perf_counter()
     prob = mesh_problem()
     outs = spawn_mesh("gloo_rank", 4, "gloo", prob)
@@ -656,11 +667,12 @@ def mesh_gloo_phase(dev):
                               verbose=False)
         allowed = 0.0 if schedule == "gaussian" else MESH_FAR_MAX
         t1 = time.perf_counter()
-        model.run_gibbs(Y, nburn=MESH_TIMED - 1, nthin=1, nsamples=1,
-                        verbose=False)
+        ref_timed = model.run_gibbs(Y, nburn=MESH_TIMED - 1, nthin=1,
+                                    nsamples=1, verbose=False)
         torch.cuda.synchronize()
         unsharded_rate = MESH_TIMED / (time.perf_counter() - t1)
         tag = f"mesh (b) {schedule}"
+        keys = ("W", "V") + (("nu2",) if schedule == "gaussian" else ())
         for r, o in enumerate(outs):
             o = o[schedule]
             check_launches(f"{tag} rank {r}", o["launches"], want_shapes)
@@ -668,17 +680,23 @@ def mesh_gloo_phase(dev):
                 if (name, shape) not in o["shapes"]:
                     fail(f"{tag} rank {r}: {name} did not launch at the "
                          f"local shape {shape} (launched at {o['shapes']})")
-            keys = ("W", "V") + (("nu2",) if schedule == "gaussian" else ())
-            for key in keys:
-                if not np.array_equal(o["res"][key], outs[0][schedule][
-                        "res"][key]):
-                    fail(f"{tag} rank {r}: its {key} differs from rank 0's")
-                far = mesh_far_share(o["res"][key], ref[key])
-                if far > allowed:
-                    fail(f"{tag} rank {r}: {far:.2%} of {key} differs from "
-                         "the unsharded run on the card by more than "
-                         f"rtol = atol = 1e-3 (at most {allowed:.0%}: "
-                         "the GASS picks that flip)")
+            # after 1 + 1 sweeps, and after the MESH_TIMED sweeps that
+            # follow them
+            for run, when, want in (("res", "1 + 1", ref),
+                                    ("timed", f"1 + 1 + {MESH_TIMED}",
+                                     ref_timed)):
+                for key in keys:
+                    got = o[run][key]
+                    if not np.array_equal(got, outs[0][schedule][run][key]):
+                        fail(f"{tag} rank {r}: its {key} differs from rank "
+                             f"0's after {when} sweeps")
+                    far = mesh_far_share(got, want[key])
+                    if far > allowed:
+                        fail(f"{tag} rank {r}: {far:.2%} of {key} differs "
+                             f"from the unsharded run on the card after "
+                             f"{when} sweeps by more than rtol = atol = "
+                             f"1e-3 (at most {allowed:.0%}: the GASS picks "
+                             "that flip)")
             if schedule == "gaussian":
                 continue
             tau = np.einsum("snk,smtk->snmt", o["res"]["W"], o["res"]["V"])
@@ -694,6 +712,18 @@ def mesh_gloo_phase(dev):
               f"shapes {o0['shapes']}")
         print(f"{tag}: |mesh - unsharded| (max, values beyond 1e-3, values):"
               f" {json.dumps(diffs)}")
+        far_timed = {k: int(round(mesh_far_share(o0["timed"][k], ref_timed[k])
+                                  * ref_timed[k].size)) for k in keys}
+        print(f"{tag}: values beyond 1e-3 of the unsharded run (gate: "
+              f"at most {allowed:.0%}) after 1 + 1 sweeps "
+              + ", ".join(f"{k} {diffs[k][1]} of {diffs[k][2]}" for k in keys)
+              + f"; after 1 + 1 + {MESH_TIMED} sweeps "
+              + ", ".join(f"{k} {far_timed[k]} of {ref_timed[k].size}"
+                          for k in keys)
+              + "; max abs after them "
+              + json.dumps({k: float(np.abs(o0["timed"][k]
+                                            - ref_timed[k]).max())
+                            for k in keys}))
         print(f"{tag}: sweeps_per_sec mesh(2,2) "
               f"{MESH_TIMED / max(o['seconds'] for o in (x[schedule] for x in outs)):.3f}"
               f" unsharded {unsharded_rate:.3f} (20x20x228, nchains=4)")
@@ -888,29 +918,135 @@ def mesh_c_rank(rank, world, dev_type, dose, prob, ckdir, profdir):
 
 
 def sum_invariance_probe(dev, draws=50):
-    """Why the mesh's sums run in a fixed order: at the ESS cell's lam2
-    shape (nchains 4, 20 columns, 683 penalty rows, k=5), the per-column
-    sums of a (2, 2) rank's block (2 chains, 10 columns) against those of
-    the whole tensor, for ``draws`` random tensors: torch.sum (differs
-    where a reduction orders its sums by its number of outputs) and
-    ``models/base.py:_fixed_sum`` (must never differ)."""
-    from functionalmf_tpu_torch.models.base import _fixed_sum
+    """Why the mesh's sums run in a fixed order: the sums of a (2, 2)
+    rank's block against those of the whole tensor, for ``draws`` random
+    tensors, at three shapes: the ESS cell's lam2 sums (nchains 4, 20
+    columns, 683 penalty rows, k=5; over the last two axes; the rank's 2
+    chains and 10 columns), the scale moves' full-tensor log-likelihood
+    (nchains 4, 20 rows, 20 columns, 228 time points; over rows and time;
+    2 chains, 10 columns) and the Gaussian nu2 draw's squared error (the
+    same shape; over all but the chains; 2 chains): torch.sum (differs
+    where a reduction orders its sums by its number of outputs),
+    ``models/base.py:_fixed_sum`` and ``_window_sum``. Then the Gaussian
+    W update's Gram, a row's sum over the 4560 cells of its weights times
+    the products of V's entries (nchains 4, 20 rows, 25 products; the
+    rank's 2 chains and 10 rows): a batched product (``@``) and
+    ``_fixed_sum`` of the elementwise products. The fixed orders may
+    never differ."""
+    from functionalmf_tpu_torch.models.base import _fixed_sum, _window_sum
     g = torch.Generator(device=dev).manual_seed(0)
-    differ = {"torch.sum": 0, "_fixed_sum": 0}
+    h = MESH_N // 2
+    cases = (("lam2", (4, MESH_N, 3 * NDEPTH - 1, NEMBEDS), (2, 3),
+              lambda t: t[:2, :h]),
+             ("full_ll", (4, MESH_N, MESH_N, NDEPTH), (1, 3),
+              lambda t: t[:2, :, :h]),
+             ("nu2", (4, MESH_N, MESH_N, NDEPTH), (1, 2, 3),
+              lambda t: t[:2]))
+    sums = {"torch.sum": lambda t, d: t.sum(d), "_fixed_sum": _fixed_sum,
+            "_window_sum": _window_sum}
+    differ = {f"{case} {name}": 0 for case, *_ in cases for name in sums}
+    for case, shape, dims, block in cases:
+        for _ in range(draws):
+            x = torch.rand(shape, generator=g, device=dev) ** 3 * 100
+            part = block(x).contiguous()
+            for name, f in sums.items():
+                ours = f(part, dims)
+                whole = f(x, dims)[tuple(slice(0, n) for n in ours.shape)]
+                differ[f"{case} {name}"] += int(not torch.equal(whole, ours))
+    P, kk = MESH_N * NDEPTH, NEMBEDS * NEMBEDS
+    grams = {"@": lambda w, vv: w @ vv,
+             "_fixed_sum": lambda w, vv: _fixed_sum(
+                 w[..., None] * vv[:, None], (2,))[:, :, 0]}
+    differ.update({f"W Gram {name}": 0 for name in grams})
     for _ in range(draws):
-        x = torch.rand((4, MESH_N, 3 * NDEPTH - 1, NEMBEDS), generator=g,
-                       device=dev) ** 3 * 100
-        part = x[:2, :MESH_N // 2].contiguous()
-        for name, f in (("torch.sum", lambda t: t.sum((2, 3))),
-                        ("_fixed_sum", lambda t: _fixed_sum(t, (2, 3)))):
-            differ[name] += int(not torch.equal(
-                f(x)[:2, :MESH_N // 2], f(part)))
-    print(f"mesh (c): per-column sums of a rank's block against the whole "
-          f"tensor's, {draws} random draws at (4, {MESH_N}, {3 * NDEPTH - 1}"
-          f", {NEMBEDS}): differ in {json.dumps(differ)}")
-    if differ["_fixed_sum"]:
-        fail("mesh (c): _fixed_sum of a rank's block differs from the whole "
-             "tensor's")
+        w = torch.rand((4, MESH_N, P), generator=g, device=dev)
+        vv = torch.randn((4, P, kk), generator=g, device=dev)
+        part = w[:2, :h].contiguous()
+        for name, f in grams.items():
+            differ[f"W Gram {name}"] += int(not torch.equal(
+                f(w, vv)[:2, :h], f(part, vv[:2])))
+    print(f"mesh (c): sums of a rank's block against the whole tensor's, "
+          f"{draws} random draws each at the lam2 shape (4, {MESH_N}, "
+          f"{3 * NDEPTH - 1}, {NEMBEDS}), the full_ll and nu2 shape (4, "
+          f"{MESH_N}, {MESH_N}, {NDEPTH}) and the Gaussian W Gram's (4, "
+          f"{MESH_N}, {P}) x (4, {P}, {kk}): differ in {json.dumps(differ)}")
+    if any(n for k, n in differ.items()
+           if not k.endswith(("torch.sum", "@"))):
+        fail("mesh (c): a fixed-order sum of a rank's block differs from the "
+             "whole tensor's")
+
+
+def launch_invariance_probe(dev, plan=None):
+    """Why the kernels' launch plan is a function of an item's shape alone:
+    the fused kernels on a (2, 2) rank's items alone against the same
+    items inside the unsharded run's launch, at phase (b)'s 20x20x228,
+    k=5, 101 candidates, on its data: ``fused_row_ll_batched`` with and
+    without EP, the rank's 20 rows (2 chains x 10 rows, its row slab of y)
+    against the 80 of 4 chains x 20 rows; ``fused_col_block_ll_batched``
+    with and without EP at the joint shape (Tb=228), the rank's 10 columns
+    against 20 at nchains 1, and its 20 pairs against 80 at nchains 4.
+    Returns {kernel: (items that differ, items compared)} by torch.equal of
+    each item's 101 values. ``plan`` stands in for the wrappers' launch
+    plan (the earlier, item-count plan as a control)."""
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    prob = mesh_problem()
+    g = torch.Generator(device=dev).manual_seed(11)
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                  device=dev)
+    i32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                                    device=dev)
+    n, m, T = prob["Y"].shape
+    k, G, C = NEMBEDS, NGRID + 1, m * T
+    h = n // 2
+    y = t(prob["Y"])
+    ep = (t(prob["ep"][0]), t(prob["ep"][1]))
+    V0, W0 = t(prob["V0"]), t(prob["W0"])
+    jitter = lambda shape: torch.rand(shape, generator=g, device=dev) * .2 + .9
+    bt = (V0.reshape(1, C, k) * jitter((4, C, k))).contiguous()
+    rc = i32(np.repeat(np.arange(4), n))
+    ri = i32(np.tile(np.arange(n), 4))
+    cw = (W0[ri.long()][:, None, :] * jitter((4 * n, G, k))).contiguous()
+    mine = torch.as_tensor([c * n + i for c in range(2) for i in range(h)],
+                           device=dev)
+    w4 = (W0[None] * jitter((4, n, k))).contiguous()
+    real = F._launch_plan
+    if plan is not None:
+        F._launch_plan = plan
+    differ = {}
+    try:
+        for ex, name in (((), "fused_row_ll"), (ep, "fused_row_ll_ep")):
+            rows = lambda x: x.reshape(n, C)
+            whole = F.fused_row_ll_batched(cw, bt, rows(y), rc, ri, F.POISSON,
+                                           tuple(map(rows, ex)))[mine]
+            part = F.fused_row_ll_batched(
+                cw[mine].contiguous(), bt[:2].contiguous(),
+                rows(y)[:h].contiguous(), rc[mine].contiguous(),
+                ri[mine].contiguous(), F.POISSON,
+                tuple(rows(e)[:h].contiguous() for e in ex))
+            differ[name] = (int((whole != part).any(-1).sum()), len(mine))
+        for nch in (1, 4):
+            pc = i32(np.repeat(np.arange(nch), m))
+            pj = i32(np.tile(np.arange(m), nch))
+            pt = i32(np.zeros(nch * m))
+            c3 = (V0[pj.long()][:, None] * jitter((nch * m, G, T, k))
+                  ).contiguous()
+            sel = torch.as_tensor([c * m + j for c in range(min(nch, 2))
+                                   for j in range(m // 2)], device=dev)
+            cols = lambda x: x[:, :m // 2].contiguous()
+            for ex, name in (((), "fused_col_block_ll"),
+                             (ep, "fused_col_block_ll_ep")):
+                whole = F.fused_col_block_ll_batched(
+                    c3, w4[:nch].contiguous(), y, pc, pj, pt, F.POISSON,
+                    ex)[sel]
+                part = F.fused_col_block_ll_batched(
+                    c3[sel].contiguous(), w4[:min(nch, 2)].contiguous(),
+                    cols(y), pc[sel].contiguous(), pj[sel].contiguous(),
+                    pt[sel].contiguous(), F.POISSON, tuple(map(cols, ex)))
+                differ[f"{name} joint nchains={nch}"] = (
+                    int((whole != part).any(-1).sum()), len(sel))
+    finally:
+        F._launch_plan = real
+    return differ
 
 
 def mesh_blackbox_phase(dev):
@@ -924,14 +1060,28 @@ def mesh_blackbox_phase(dev):
     timed sweeps on both; (c4) the bench.py recipe (both fused kernels at
     a rank's local shapes) cut after 3 sweeps and resumed from its
     checkpoint, equal to the uncut mesh run bit for bit, and a profiled
-    sweep that leaves one trace a rank. Gates: c1, c2 at most MESH_FAR_MAX
-    of the W, V (and U) values beyond rtol = atol = 1e-3 of the unsharded
-    run, every dose-response draw inside its curve and row constraints;
-    c3 W and V within 1e-5. One line a part: seconds, sweeps/s on the mesh
-    and unsharded, collectives a sweep a rank, the branch of each
-    update."""
+    sweep that leaves one trace a rank. Gates: c1, c2 and c4 at most
+    MESH_FAR_MAX of the W, V (and U) values beyond rtol = atol = 1e-3 of
+    the unsharded run (c4: its 2 + 4 sweeps), every dose-response draw
+    inside its curve and row constraints, c4's state feasible; c3 W and V
+    within 1e-5. First the sum and launch-invariance probes. One line a
+    part: seconds, sweeps/s on the mesh and unsharded, collectives a sweep
+    a rank, the branch of each update, the values beyond 1e-3."""
     t0 = time.perf_counter()
     sum_invariance_probe(dev)
+    from functionalmf_tpu_torch.ops.fused_ll_bench import items_launch_plan
+    control = launch_invariance_probe(dev, items_launch_plan)
+    differ = launch_invariance_probe(dev)
+    print("mesh (c): the fused kernels on a (2, 2) rank's items alone "
+          "against the same items inside the unsharded launch "
+          f"({MESH_N}x{MESH_N}x{NDEPTH}, {NGRID + 1} candidates), items that "
+          "differ of those compared: "
+          f"{json.dumps(differ)}; under the earlier item-count plan: "
+          f"{json.dumps(control)} ({time.perf_counter() - t0:.1f}s with the "
+          "sum probe)")
+    if any(d for d, _ in differ.values()):
+        fail("mesh (c): a fused kernel sums an item differently inside a "
+             "launch of another item count")
     dose, prob = dose_mesh_problem(), mesh_problem()
     with tempfile.TemporaryDirectory() as ckdir, \
             tempfile.TemporaryDirectory() as profdir:
@@ -981,8 +1131,7 @@ def mesh_blackbox_phase(dev):
                              "differs from the uncut mesh run")
                 check_launches(f"{tag} rank {r}", o["launches"],
                                ("fused_row_ll", "fused_col_block_ll"))
-                continue
-            if any(o["launches"].values()):
+            elif any(o["launches"].values()):
                 fail(f"{tag} rank {r}: a fused kernel launched "
                      f"({o['launches']}) on a path without a cell function")
             for key in keys:
@@ -1017,6 +1166,11 @@ def mesh_blackbox_phase(dev):
               f"for the hook {o0['hook_gathers']}; branch {o0['split']}; "
               f"|mesh - unsharded| (max, values beyond 1e-3, values) "
               f"{json.dumps(diffs)}; unsharded {t2 - t1:.1f}s")
+        gate = ("within 1e-5" if part == "c3" else
+                f"at most {MESH_FAR_MAX:.0%} beyond 1e-3")
+        print(f"{tag}: values beyond 1e-3 of the unsharded run (gate: "
+              f"{gate}): "
+              + ", ".join(f"{k} {d[1]} of {d[2]}" for k, d in diffs.items()))
     print(f"mesh (c4): resumed run equal to the uncut mesh run bit for bit; "
           f"traces {traces}; ranks' part {t_ranks:.1f}s")
     phase_seconds("mesh (c) black-box models and run_gibbs options", t0)

@@ -10,7 +10,9 @@ hand-written CUDA kernels on the card, each with and without EP
 versions on the CPU; without one, the user's black-box likelihood is
 lifted over candidates and items with ``torch.func.vmap``
 (``models/constrained.py``). ``NonconjugateBayesianTensorFiltering`` is the
-unconstrained model by elliptical slice sampling.
+unconstrained model by elliptical slice sampling. ``gass`` and
+``elliptical_slice`` are the samplers in the JAX package's one-point call
+forms, a ``torch.Generator`` in the key's place.
 It also runs the conjugate and Polya-Gamma families,
 ``GaussianBayesianTensorFiltering``, ``BinomialBayesianTensorFiltering``
 and ``NegativeBinomialBayesianTensorFiltering``, whose V update factors a
@@ -36,6 +38,8 @@ from functionalmf_tpu_torch.ops.mvn import (
     sample_mvn, sample_mvn_from_covariance, sample_mvn_from_precision)
 from functionalmf_tpu_torch.ops.polyagamma import polya_gamma
 from functionalmf_tpu_torch.ops.fused_ll import POISSON, CellFn
+from functionalmf_tpu_torch.samplers.ess import elliptical_slice
+from functionalmf_tpu_torch.samplers.gass import gass
 
 __all__ = ["BayesianTensorFiltering",
            "GaussianBayesianTensorFiltering",
@@ -43,6 +47,7 @@ __all__ = ["BayesianTensorFiltering",
            "NegativeBinomialBayesianTensorFiltering",
            "ConstrainedNonconjugateBayesianTensorFiltering",
            "NonconjugateBayesianTensorFiltering",
+           "gass", "elliptical_slice",
            "polya_gamma", "sample_mvn", "sample_mvn_from_precision",
            "sample_mvn_from_covariance",
            "CellFn", "POISSON", "tril_mask", "packed_w_len"]

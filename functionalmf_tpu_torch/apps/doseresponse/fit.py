@@ -35,7 +35,7 @@ from functionalmf_tpu_torch import (
 from functionalmf_tpu_torch._runtime import SweepRNG, resolve_device
 from functionalmf_tpu_torch.apps.doseresponse.empirical_bayes import (
     estimate_likelihood, read_csv_columns)
-from functionalmf_tpu_torch.samplers.gass import draw_gass_noise, gass
+from functionalmf_tpu_torch.samplers.gass import draw_gass_noise, gass_grid
 from functionalmf_tpu_torch.utils.ep import ep_from_mf
 from functionalmf_tpu_torch.utils.metrics import mae, mse
 from functionalmf_tpu_torch.utils.nmf import tensor_nmf
@@ -129,8 +129,8 @@ def _make_u_all(X, device):
 
         v = torch.randn(U.shape, generator=gen, device=device)
         log_u, gumbel = draw_gass_noise(gen, p, U_NGRID, device)
-        return gass(U, loglik, Af, c.expand(p, -1), v=v, log_u=log_u,
-                    gumbel=gumbel)[0]
+        return gass_grid(U, loglik, Af, c.expand(p, -1), v=v, log_u=log_u,
+                         gumbel=gumbel)[0]
     return u_all
 
 

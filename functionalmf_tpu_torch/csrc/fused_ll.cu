@@ -27,8 +27,9 @@
 // (a seq round is 152 cells an item) is a chain of dependent steps. The
 // design:
 //   * Fill the card with one launch. An item of 1024 cells or more is
-//     split across a thread-block cluster of up to 8 blocks, about
-//     1.5 x 132 blocks in all (the host's plan, from the item count). The
+//     split across a thread-block cluster of up to 8 blocks, a block for
+//     every 512 cells (the host's plan, from the item's shape alone, so
+//     that an item sums alike in any launch). The
 //     blocks' partial sums for all candidates are reduced through
 //     distributed shared memory in a fixed rank order, and rank 0 writes
 //     the output: no atomics, no second pass, bit-identical run to run. A

@@ -99,6 +99,28 @@ def _fixed_sum(x, dims):
     return y.reshape([1 if d in dims else n for d, n in enumerate(x.shape)])
 
 
+def _window_sum(x, dims):
+    """x summed over ``dims`` (kept, of size 1) in an order fixed by their
+    sizes alone, in a launch an axis (and a copy where the axis is not the
+    last) where ``_fixed_sum`` takes about two a halving: the axes in turn,
+    the last first, each output's values summed in index order by one
+    thread (``avg_pool2d`` over the whole axis, divisor 1), whatever the
+    number of outputs. For a sum called often (the scale moves' full-tensor
+    log-likelihood over rows and time, 34 calls a sweep).
+
+    The order is how PyTorch's CUDA ``avg_pool2d`` kernel sums a window
+    (checked with torch 2.11, CUDA 12.8), not a documented contract: a
+    torch build that sums a window otherwise changes it, and the sum probe
+    of ``chip_smoke.py`` (phase (c)) is what would show that."""
+    for d in sorted(dims, reverse=True):
+        y = x.movedim(d, -1)
+        n = y.shape[-1]
+        s = torch.nn.functional.avg_pool2d(y.reshape(1, -1, 1, n), (1, n),
+                                           divisor_override=1)
+        x = s.reshape(y.shape[:-1] + (1,)).movedim(-1, d)
+    return x
+
+
 class _Part:
     """This rank's part of a model's chains, rows and columns under a
     mesh: each a slice of the global axis, and whether the axis is split

@@ -113,7 +113,7 @@ import torch
 
 from functionalmf_tpu_torch._runtime import tree_leaves, tree_map
 from functionalmf_tpu_torch.models.base import (BayesianTensorFiltering,
-                                                _fixed_sum)
+                                                _fixed_sum, _window_sum)
 from functionalmf_tpu_torch.ops.fused_ll import (
     KERNEL_CELLS, as_cellfn, ep_log_density, fused_col_block_ll_batched,
     fused_row_ll_batched)
@@ -121,7 +121,7 @@ from functionalmf_tpu_torch.ops.mvn import (
     _cho_solve, _solve_lt, cholesky_psd, sample_mvn_from_precision)
 from functionalmf_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS
 from functionalmf_tpu_torch.samplers.gass import (
-    draw_gass_noise, draw_gass_shrink_noise, gass, gass_shrink)
+    draw_gass_noise, draw_gass_shrink_noise, gass_grid, gass_shrink)
 from functionalmf_tpu_torch.samplers.slice1d import shrink_slice_1d
 
 __all__ = ["ConstrainedNonconjugateBayesianTensorFiltering",
@@ -619,7 +619,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                                **kw)[0]
         log_u, gumbel = map(local, draw_gass_noise(gen, Bg, self.gass_ngrid,
                                                    self.device))
-        return gass(x, loglik, A, c, log_u=log_u, gumbel=gumbel, **kw)[0]
+        return gass_grid(x, loglik, A, c, log_u=log_u, gumbel=gumbel,
+                         **kw)[0]
 
     def _w_proposal(self, V, sigma2):
         """The W rows' proposal Gaussian (constrained.py:428-450): the
@@ -1077,9 +1078,12 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             y32 = self._f32(self._rows_cols(y)[1])
 
             def full_ll(tau_s, W_s, V_s):
-                # a column's sum in one reduction (34 calls a sweep: no
-                # fixed-order sum here), then the columns' over mp
-                return p.cols_sum(cellfn(y32[None], tau_s).sum((1, 3)), (1,))
+                # a column's sum in a fixed order (34 calls a sweep:
+                # _window_sum, three launches), then the columns' over mp:
+                # a reduction of every column at once can be ordered by the
+                # number of columns and chains a rank holds
+                ll = _window_sum(cellfn(y32[None], tau_s), (1, 3))
+                return p.cols_sum(ll[:, 0, :, 0], (1,))
         else:
             whole = self._whole_data(y)
             if p.split_m:

@@ -26,14 +26,18 @@ tensor on every rank of an mp line, from W and V all-gathered over mp:
 they draw and sum what the unsharded run does, and need no other
 collective. The W update is row-local (V all-gathered), the V update's
 banded factorisation column-local (W all-gathered); its repair counts
-are summed over mp (``_Part.cols_sum``).
+are summed over mp (``_Part.cols_sum``). The W update's Gram and the nu2
+draw's sums run in a fixed order (``_fixed_sum``): on the card a batched
+product or a reduction orders its sums by the number of rows or chains
+it holds, and a rank holds a part of them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from functionalmf_tpu_torch.models.base import BayesianTensorFiltering
+from functionalmf_tpu_torch.models.base import (BayesianTensorFiltering,
+                                                _fixed_sum)
 from functionalmf_tpu_torch.ops.banded import (
     build_v_bands, retiled_noise_shape, sample_mvn_block_banded_retiled)
 from functionalmf_tpu_torch.ops.mvn import sample_mvn_from_precision
@@ -156,7 +160,10 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         w8, wy = p.take(w8, ".r"), p.take(wy, ".r")
         Vf = p.all_cols(state["V"]).reshape(nch, -1, k)        # (nch, P, k)
         VV = (Vf[:, :, :, None] * Vf[:, :, None, :]).reshape(nch, -1, k * k)
-        Q_lik = (w8.reshape(nch, n, -1) @ VV).reshape(nch, n, k, k)
+        # a row's Gram summed over the cells in a fixed order (_fixed_sum;
+        # cells x k^2 values a chain in flight)
+        Q_lik = _fixed_sum(w8.reshape(nch, n, -1, 1) * VV[:, None],
+                           (2,)).reshape(nch, n, k, k)
         mask = self._wmask_rows
         eye = torch.eye(k, device=self.device)
         Q = (Q_lik * mask[:, :, None] * mask[:, None, :]
@@ -219,11 +226,12 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         Mu = self._whole_mu(state)
         cellerr = (pdata["ysqsum"] - 2.0 * Mu * pdata["ysum"]
                    + pdata["counts"] * Mu * Mu)
+        # a chain's sums in a fixed order (_fixed_sum)
         if self.nu2_mode == "row":
-            sqerr = cellerr.sum((2, 3))                       # (nch, n)
+            sqerr = _fixed_sum(cellerr, (2, 3))[:, :, 0, 0]  # (nch, n)
             nobs = pdata["counts"].sum((1, 2)).expand(self.nchains, -1)
         else:
-            sqerr = cellerr.sum((1, 2, 3))                    # (nch,)
+            sqerr = _fixed_sum(cellerr, (1, 2, 3)).reshape(-1)   # (nch,)
             nobs = pdata["counts"].sum().expand(self.nchains)
         if gamma is None:           # for every chain
             gamma = self._part.take(

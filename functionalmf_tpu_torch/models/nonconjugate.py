@@ -31,7 +31,7 @@ from functionalmf_tpu_torch._runtime import tree_map
 from functionalmf_tpu_torch.models.base import BayesianTensorFiltering
 from functionalmf_tpu_torch.parallel.mesh import MP_AXIS
 from functionalmf_tpu_torch.samplers.ess import (draw_ess_noise,
-                                                 elliptical_slice)
+                                                 elliptical_slice_batched)
 
 __all__ = ["NonconjugateBayesianTensorFiltering"]
 
@@ -78,9 +78,9 @@ class NonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
     def _ess(self, x, prior, loglik, gen):
         """One joint ESS step of the global ``x`` (this rank's chains),
         the line's first rank's result on every rank of an mp line."""
-        x, _ = elliptical_slice(x, prior, loglik, gen,
-                                max_iters=self.ess_max_iters,
-                                noise=self._ess_noise(gen))
+        x, _ = elliptical_slice_batched(x, prior, loglik, gen,
+                                        max_iters=self.ess_max_iters,
+                                        noise=self._ess_noise(gen))
         return x if self.mesh is None else self.mesh.broadcast(x, MP_AXIS)
 
     def _update_W_ess(self, state, data, gen):

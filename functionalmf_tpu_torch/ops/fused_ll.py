@@ -82,7 +82,7 @@ _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 # The kernels' launch constants (csrc/fused_ll.cu): warps a block (256
 # threads), candidates a pass (4 a lane), blocks a cluster at most.
 _WARPS, _PASS, _MAX_CLUSTER = 8, 128, 8
-_SMS = 132                  # streaming multiprocessors of an H100
+_CELLS_A_BLOCK = 512        # cells a block of a split item
 _SMEM_MAX = 232_448         # the H100's shared memory a block (227 KB)
 _SMEM_SOFT = 96 * 1024      # chunks shrink until two blocks fit an SM
 # the largest chunk: cells (row kernel), time slots (column kernel)
@@ -182,37 +182,36 @@ def _block_ranges(units, cluster):
                  for r in range(cluster))
 
 
-def _cluster_size(items, cells):
-    """Blocks an item of ``cells`` cells is split over. An item of fewer
-    than 1024 cells stays in one block: there the cluster's barriers and
-    reduction cost more than the split saves. A larger item is split over
-    up to 8 blocks (the portable cluster), about 1.5 x 132 blocks in all.
-    (Chosen from device times on an H100 at the paths' shapes.)"""
+def _cluster_size(cells):
+    """Blocks an item of ``cells`` cells is split over, from the item's
+    size alone. An item of fewer than 1024 cells stays in one block: there
+    the cluster's barriers and reduction cost more than the split saves. A
+    larger item takes a block for every 512 cells, up to 8 blocks (the
+    portable cluster); every item of 4096 cells or more, the W rows' and
+    the joint blocks' at the paths' shapes, takes 8.
+
+    The number of items in the launch plays no part: the cluster and the
+    chunk set the order in which an item's cells are summed, and an item
+    must have the same bits whichever launch it is in (a rank of a mesh
+    launches a part of the unsharded run's items)."""
     if cells < 1024:
         return 1
-    return max(1, min(_MAX_CLUSTER, -(-3 * _SMS // (2 * max(items, 1)))))
+    return min(_MAX_CLUSTER, -(-cells // _CELLS_A_BLOCK))
 
 
-@functools.lru_cache(maxsize=256)
-def _launch_plan(kind, items, units, G, k, n=0, ep=False):
-    """The kernels' launch plan, a pure function of the shapes.
-
-    kind "row": ``items`` rows of ``units`` = C cells each; "col":
-    ``items`` (chain, column, block) pairs of ``units`` = Tb time slots of
-    ``n`` cells each. Each item runs on a cluster of ``cluster`` blocks
-    (:func:`_cluster_size`, at most one a unit); block rank r takes units
-    ``blocks[r]`` and walks them in chunks of ``chunk`` through two
-    shared-memory stages, in candidate passes of 128 (``passes``: (first
-    candidate, count)). ``smem`` is the dynamic shared memory a block,
-    ``grid`` the blocks of the launch.
+def _split_plan(kind, cluster, units, G, k, n, ep):
+    """An item's split over ``cluster`` blocks (at most one a unit): block
+    rank r takes units ``blocks[r]`` and walks them in chunks of ``chunk``
+    through two shared-memory stages, in candidate passes of 128
+    (``passes``: (first candidate, count)); ``smem`` is the dynamic shared
+    memory a block.
 
     The chunk is the block's whole range up to 1024 cells (row kernel) or
     16 time slots (column kernel), a multiple of 4 where the range is
     longer: on an H100 a chunk costs a round trip to memory and three block
     barriers, and fewer, larger chunks measured faster at every path
-    shape.
-    """
-    cluster = min(_cluster_size(items, units * max(n, 1)), units)
+    shape."""
+    cluster = min(cluster, units)
     blocks = _block_ranges(units, cluster)
     per_block = max(hi - lo for lo, hi in blocks)
     most = _CHUNK_MAX[kind]
@@ -225,10 +224,28 @@ def _launch_plan(kind, items, units, G, k, n=0, ep=False):
         raise ValueError(
             f"{kind} kernel: {smem} bytes of shared memory a block at the "
             f"smallest chunk exceed the card's {_SMEM_MAX} (n={n}, k={k})")
-    return dict(grid=items * cluster, cluster=cluster, chunk=chunk,
-                smem=smem, blocks=blocks,
+    return dict(cluster=cluster, chunk=chunk, smem=smem, blocks=blocks,
                 passes=tuple((g0, min(_PASS, G - g0))
                              for g0 in range(0, G, _PASS)))
+
+
+@functools.lru_cache(maxsize=256)
+def _item_plan(kind, units, G, k, n=0, ep=False):
+    """How the kernels sum one item, a pure function of the item's shape:
+    kind "row", an item of ``units`` = C cells; "col", an item of
+    ``units`` = Tb time slots of ``n`` cells each (:func:`_split_plan`,
+    the cluster from :func:`_cluster_size`)."""
+    return _split_plan(kind, _cluster_size(units * max(n, 1)), units, G, k,
+                       n, ep)
+
+
+def _launch_plan(kind, items, units, G, k, n=0, ep=False):
+    """The kernels' launch plan: every item's split (:func:`_item_plan`)
+    and ``grid``, the blocks of a launch of ``items`` items, the one
+    number the item count sets."""
+    plan = dict(_item_plan(kind, units, G, k, n, ep))
+    plan["grid"] = items * plan["cluster"]
+    return plan
 
 
 # ----------------------------------------------------------------------

@@ -23,11 +23,14 @@ these are measured:
   case's data needs (:func:`work`).
 
 With ``--baseline``, a second library is built from OLD.cu (an earlier
-``csrc/fused_ll.cu`` with the same C entry points, without the launch-plan
-arguments) and its device time is taken beside the current kernels' in
-turns: old, new, new, old. ``chip_smoke.py`` runs :func:`run_cases` on the
-paths' own data; :func:`mesh_cases` adds the local shapes of a rank of the
-(2, 2) mesh at 20x20x228.
+``csrc/fused_ll.cu``: one whose entry points lack the launch-plan
+arguments, or one with them, launched under the item-count plan it
+shipped with, :func:`items_launch_plan`) and its device time is taken
+beside the current kernels' in turns: old, new, new, old.
+``chip_smoke.py`` runs :func:`run_cases` on the paths' own data;
+:func:`mesh_cases` adds the local shapes of a rank of the (2, 2) mesh at
+20x20x228, :func:`example_cases` the Poisson example's (here on
+synthetic counts of its 11x12x20, k=3).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from functionalmf_tpu_torch.ops import fused_ll as F
 
 __all__ = ["H100", "Case", "path_cases", "mesh_cases", "work", "device_us",
            "host_us", "event_ms", "check_case", "time_case", "run_cases",
-           "Baseline"]
+           "Baseline", "items_launch_plan"]
 
 RTOL, ATOL = 1e-5, 1e-3
 REPS = 50
@@ -477,29 +480,46 @@ def format_record(rec):
             f"plain_ms={rec['plain_ms']:.4f} [{rec['timing']}]")
 
 
+def items_launch_plan(kind, items, units, G, k, n=0, ep=False):
+    """The earlier launch plan, whose cluster grew as the launch's item
+    count fell: an item of 1024 cells or more over ceil(1.5 x 132 /
+    items) blocks, at most 8. An item then summed its cells in another
+    order in a launch of fewer items, such as a mesh rank's."""
+    cells = units * max(n, 1)
+    cluster = 1 if cells < 1024 else max(1, min(8, -(-3 * 132 //
+                                                   (2 * max(items, 1)))))
+    plan = dict(F._split_plan(kind, cluster, units, G, k, n, ep))
+    plan["grid"] = items * plan["cluster"]
+    return plan
+
+
 class Baseline:
     """An earlier fused_ll.cu built into its own library and launched on
-    a case's tensors through its C entry points (the argument lists of
-    ``fmf_row_ll`` / ``fmf_col_block_ll`` without the launch-plan
-    arguments)."""
+    a case's tensors through its C entry points. A source whose entry
+    points take the launch plan (cluster, chunk, shared-memory bytes)
+    gets :func:`items_launch_plan`, the plan such sources shipped with;
+    an older one the argument lists without it."""
 
     def __init__(self, source):
         from functionalmf_tpu_torch.ops import _build
         self.lib = ctypes.CDLL(str(_build.build([Path(source)],
                                                 name="fmf_baseline")))
+        self.planned = "int cluster" in Path(source).read_text()
         p, i = ctypes.c_void_p, ctypes.c_int
+        plan = [i, i, i] if self.planned else []
         self.lib.fmf_row_ll.argtypes = [i, p, p, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, p]
+                                        i, i, i, i, i, i, p] + plan
         self.lib.fmf_col_block_ll.argtypes = [i, p, p, p, p, p, p, p, p, p,
-                                              i, i, i, i, i, i, i, i, p]
+                                              i, i, i, i, i, i, i, i,
+                                              p] + plan
 
     def launcher(self, case):
         """A launch of the old kernel on the case, or None where the old
-        wrapper refused the shape (a 16 x Tb x k candidate tile wholly in
-        shared memory)."""
+        wrapper refused the shape (the oldest: a 16 x Tb x k candidate tile
+        wholly in shared memory)."""
         a = case.args
-        if not case.row and 16 * a[0].shape[2] * a[0].shape[3] * 4 > \
-                227 * 1024 - 256:
+        if not self.planned and not case.row and \
+                16 * a[0].shape[2] * a[0].shape[3] * 4 > 227 * 1024 - 256:
             return None
         mu, sig = (e.data_ptr() for e in case.extras) if case.extras \
             else (None, None)
@@ -510,24 +530,32 @@ class Baseline:
                               device=a[0].device)
             stream = torch.cuda.current_stream().cuda_stream
             ptrs = [x.data_ptr() for x in a]
+            ep = bool(case.extras)
             if case.row:
                 R, _, k = a[0].shape
                 nch, C, _ = a[1].shape
+                plan = items_launch_plan("row", R, C, G, k, ep=ep)
                 code = self.lib.fmf_row_ll(
                     0, ptrs[0], ptrs[1], ptrs[2], mu, sig, ptrs[3], ptrs[4],
-                    out.data_ptr(), R, G, k, C, nch, a[2].shape[0], stream)
+                    out.data_ptr(), R, G, k, C, nch, a[2].shape[0], stream,
+                    *self._plan_args(plan))
             else:
                 P, _, Tb, k = a[0].shape
                 nch, n, _ = a[1].shape
                 _, m, T = a[2].shape
+                plan = items_launch_plan("col", P, Tb, G, k, n, ep)
                 code = self.lib.fmf_col_block_ll(
                     0, ptrs[0], ptrs[1], ptrs[2], mu, sig, ptrs[3], ptrs[4],
                     ptrs[5], out.data_ptr(), P, G, Tb, k, n, m, T, nch,
-                    stream)
+                    stream, *self._plan_args(plan))
             if code != 0:
                 raise RuntimeError(f"baseline launch failed ({code})")
             return out
         return launch
+
+    def _plan_args(self, plan):
+        return ((plan["cluster"], plan["chunk"], plan["smem"])
+                if self.planned else ())
 
 
 def synthetic_problem(seed=42, n=19, m=19, T=228, k=5):
@@ -557,8 +585,10 @@ def main(argv=None):
     baseline = Baseline(args.baseline) if args.baseline else None
     Y, W, V, pol = synthetic_problem()
     Ym, Wm, Vm, polm = synthetic_problem(n=20, m=20)
+    Ye, We, Ve, _ = synthetic_problem(seed=1, n=11, m=12, T=20, k=3)
     records = run_cases(path_cases(dev, Y, W, V, pol)
-                        + mesh_cases(dev, Ym, Wm, Vm, polm[3]), baseline)
+                        + mesh_cases(dev, Ym, Wm, Vm, polm[3])
+                        + example_cases(dev, Ye, We, Ve), baseline)
     for rec in records:
         print(format_record(rec), flush=True)
     if args.out:

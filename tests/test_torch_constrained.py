@@ -177,13 +177,22 @@ def test_redblack_phase_candidate_ll_matches_jax_inline_path(rng):
     assert [ph.size for ph in tm._phases] == [4, 4, 3]
 
 
+# The spread of the posterior means of (log lam2, log sigma2) between two
+# JAX chains of test_slice_matches_jax_in_distribution's run (seed 7 there):
+# the RMS of their pairwise differences over JAX seeds 7-11, whose means
+# were (-3.5523, -3.4044, -3.6562, -3.7480, -3.7191) and (-0.4003, -0.4495,
+# -0.8237, -0.3265, -0.3359); their posterior sd is about 2.
+JAX_SCALE_SPREAD = np.array([0.198, 0.291])
+
+
 def test_slice_matches_jax_in_distribution():
     """The whole red-black recipe on a toy shape: the port (plain path)
     and the JAX package (fuse_cells=False, its shipped path) reach the
     same posterior mean of Mu (the rel < 0.12 criterion of
     tests/test_constrained.py:304-348) and of log lam2 and log sigma2
-    (within 0.75, about a third of their posterior sd of ~2; the scale
-    moves set these), and every draw is feasible."""
+    (within twice the spread between two JAX seeds, JAX_SCALE_SPREAD, the
+    method of test_pgds_posterior_mean_agrees_with_jax; the scale moves
+    set these), and every draw is feasible."""
     n, m, T, k = 6, 5, 12, 2
     Y, C, W0, V0, Mu = _problem(5, n, m, T, k)
     common = dict(nembeds=k, tf_order=0, sigma2_init=0.5, lam2_init=0.1,
@@ -206,7 +215,8 @@ def test_slice_matches_jax_in_distribution():
     rel = np.abs(means["jax"] - means["torch"]).mean() / np.sqrt(
         (Mu ** 2).mean())
     assert rel < 0.12, rel
-    assert np.abs(scales["jax"] - scales["torch"]).max() < 0.75, scales
+    assert (np.abs(scales["jax"] - scales["torch"])
+            < 2 * JAX_SCALE_SPREAD).all(), scales
     assert tm.check_constraints()
 
 

@@ -164,13 +164,41 @@ def test_launch_plan_covers_every_cell_and_candidate_once(kind, items,
     assert 1 <= plan["cluster"] <= 8 and len(plan["blocks"]) == \
         plan["cluster"]
     assert plan["grid"] == items * plan["cluster"]
-    # an item of 1024 cells or more is split to about 1.5 x 132 blocks in
-    # all, a smaller one stays in one block
+    # an item of 1024 cells or more is split over a block for every 512
+    # cells, at most 8; a smaller one stays in one block
     cells = units * max(n, 1)
-    assert plan["cluster"] == 1 if cells < 1024 else \
-        plan["grid"] >= min(132, items * 8)
+    assert plan["cluster"] == (1 if cells < 1024 else
+                               min(8, -(-cells // 512)))
     assert plan["smem"] == F._smem_bytes(kind, plan["chunk"], G, k, n, ep)
     assert plan["smem"] <= 232_448
+
+
+# every item shape of PERF.md's kernel table: the W rows at 19x19x228,
+# at a (2, 2) mesh rank's 20x20x228 and in the Poisson example; the column
+# blocks of a red-black phase or seq round, the tail and the joint block
+# at n = 19, 20 and 11 rows
+ITEM_SHAPES = [("row", 4332, 0), ("row", 4560, 0), ("row", 240, 0),
+               ("col", 8, 19), ("col", 4, 19), ("col", 228, 19),
+               ("col", 1000, 19), ("col", 8, 20), ("col", 4, 20),
+               ("col", 228, 20), ("col", 8, 11), ("col", 4, 11)]
+
+
+@pytest.mark.parametrize("G", [101, 1])
+@pytest.mark.parametrize("ep", [False, True])
+@pytest.mark.parametrize("kind,units,n", ITEM_SHAPES)
+def test_launch_plan_of_an_item_does_not_depend_on_the_item_count(
+        kind, units, n, ep, G):
+    """The cluster, the blocks' ranges and the chunk set the order in
+    which the kernels sum an item's cells: they are the same whether the
+    item is launched alone, with a (2, 2) mesh rank's 20 rows, with the
+    unsharded run's 80 or with 1064 colour-phase pairs. Only the grid
+    grows with the item count."""
+    plans = [F._launch_plan(kind, items, units, G, 5, n, ep)
+             for items in (1, 20, 80, 1064)]
+    for items, plan in zip((1, 20, 80, 1064), plans):
+        for key in ("cluster", "blocks", "chunk", "smem", "passes"):
+            assert plan[key] == plans[0][key], (items, key)
+        assert plan["grid"] == items * plan["cluster"]
 
 
 @pytest.mark.parametrize("ep", [False, True])

@@ -124,3 +124,33 @@ def test_chip_smoke_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_top_level_exports_the_jax_public_surface():
+    """Every name of the JAX package's ``__all__`` is exported by the port
+    (``gass`` and ``elliptical_slice`` among them), and the two samplers
+    take the JAX call forms' parameters in their order, a generator in
+    the key's place."""
+    import inspect
+
+    import functionalmf_tpu as jpkg
+    import functionalmf_tpu_torch as tpkg
+    for name in jpkg.__all__:
+        assert name in tpkg.__all__ and hasattr(tpkg, name), name
+    for name in ("gass", "elliptical_slice"):
+        jp = list(inspect.signature(getattr(jpkg, name)).parameters)
+        tp = list(inspect.signature(getattr(tpkg, name)).parameters)
+        assert jp[0] == "key" and tp[0] == "gen", name
+        assert tp[1:len(jp)] == jp[1:], (name, jp, tp)
+
+
+def test_mesh_drift_imports_no_jax():
+    """mesh_drift.py, the card's step-by-step mesh comparison, loads no
+    jax either."""
+    code = ("import sys\nsys.argv = ['mesh_drift.py']\nimport mesh_drift\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert 'functionalmf_tpu' not in sys.modules\nprint('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -7,7 +7,8 @@ constrained model at JAX's test shape (8x8x6, k=2, nchains=2, ngrid 12,
 tf_order 1, positivity; tests/test_parallel.py:87-138) for 1 + 1 sweeps
 with interweave and factor_rebalance on under the red-black, seq+EP and
 joint schedules, the same with 9 rows (indivisible by mp=2: W stays
-whole on every rank, as JAX replicates it), a longer run, and the
+whole on every rank, as JAX replicates it), a longer run, the recipe at
+nchains 4 for chip_smoke.py's c4 length (2 + 4 sweeps), and the
 Gaussian (scalar, per-row and fixed heteroskedastic nu2), Binomial and
 NegBinom models at 6x4x12, k=2, nchains=2.
 
@@ -16,7 +17,9 @@ sums over rows and columns run in a fixed order
 (``models/base.py:_Part._sum``): after 1 + 1 sweeps W, V, sigma2 and lam2
 (and nu2 and R) agree within rtol = atol = 1e-3, JAX's own bound for its
 sharded run (measured here: the constrained runs to the bit; the
-Gaussian family's banded V update rounds by a rank's batch shapes).
+Gaussian, Binomial and NegBinom runs not to the bit, the step not traced
+on the CPU; on the card the Gaussian run is equal to the bit,
+chip_smoke.py phase (b)).
 Every rank returns the same results dict."""
 import numpy as np
 import pytest
@@ -28,6 +31,9 @@ SCHEDS = ("redblack", "seq_ep", "joint")
 FAMILIES = ("gaussian", "gaussian_row", "gaussian_hetero", "binomial",
             "negbinom")
 LONG = dict(nburn=25, nsamples=15)
+# chip_smoke.py's c4: the recipe (red-black, interweave, factor_rebalance)
+# at nchains 4, 2 + 4 sweeps, here at 8x8x12
+C4 = dict(nburn=2, nsamples=4, nchains=4, T=12)
 
 
 @pytest.fixture(scope="module")
@@ -43,6 +49,7 @@ def runs(tmp_path_factory):
     scen += [("rows9", "run_constrained",
               dict(schedule="redblack", nburn=1, nsamples=1, n=9))]
     scen += [("long", "run_constrained", dict(schedule="redblack", **LONG))]
+    scen += [("c4", "run_constrained", dict(schedule="redblack", **C4))]
     scen += [("interop", "interop_round_trip", dict(np_state=_np_state()))]
     scen += [(f, "run_family", dict(family=f, nburn=1, nsamples=1))
              for f in FAMILIES]
@@ -139,7 +146,8 @@ def test_indivisible_rows_stay_whole_and_agree(runs):
 def test_longer_run_under_the_mesh(runs):
     """JAX's test_constrained_long_run_under_mesh (tests/test_parallel.py:
     142) at 25 + 15 sweeps: every draw feasible, the draws move, no
-    non-finite fallback."""
+    non-finite fallback; and every draw equal to the unsharded run's bit
+    for bit."""
     model, _ = constrained_model("redblack")
     W0, V0 = model.W, model.V
     got = _ok(runs[1], "long")
@@ -155,3 +163,23 @@ def test_longer_run_under_the_mesh(runs):
     assert not np.allclose(res["W"][:S], W0[0])
     assert not np.allclose(res["V"][S:], V0[1])
     assert np.unique(res["sigma2"]).size > S
+    _, ref = unsharded(constrained_model, "redblack", **LONG)
+    for key in ("W", "V", "sigma2", "lam2", "Tau2"):
+        np.testing.assert_array_equal(res[key], ref[key], err_msg=key)
+
+
+def test_recipe_at_the_smoke_runs_length_equals_the_unsharded_run(runs):
+    """The recipe at nchains 4 for c4's 2 + 4 sweeps (chip_smoke.py phase
+    (c)) on the (2, 2) mesh: every rank's draws equal the unsharded run's
+    bit for bit, not merely within 1e-3."""
+    got = _ok(runs[1], "c4")
+    _, ref = unsharded(constrained_model, "redblack", **C4)
+    assert got[0]["part"] == (2, 4, 4, True, True, True)
+    for key in ("W", "V", "sigma2", "lam2", "Tau2"):
+        for r, o in enumerate(got):
+            np.testing.assert_array_equal(o["res"][key], ref[key],
+                                          err_msg=f"rank {r} {key}")
+    model, _ = constrained_model("redblack", **{k: C4[k] for k in
+                                                ("nchains", "T")})
+    assert not np.allclose(got[0]["res"]["V"][-1], model.V[-1])
+    assert got[0]["slack"] >= -1e-5

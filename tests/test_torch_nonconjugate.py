@@ -1,7 +1,7 @@
 """The port's elliptical slice sampler and its unconstrained black-box
 model against the JAX package's.
 
-* ``elliptical_slice``: one step under the noise JAX itself draws from
+* ``elliptical_slice_batched``: one step under the noise JAX itself draws from
   the same key (ess.py:40-45, 70), several chains at once; atol=1e-5. The
   distribution checks of tests/test_samplers.py with the port's own draws.
 * ``NonconjugateBayesianTensorFiltering``: one W and one V update from a
@@ -20,7 +20,7 @@ from functionalmf_tpu import NonconjugateBayesianTensorFiltering as JaxModel
 from functionalmf_tpu.samplers.ess import elliptical_slice as jess
 from functionalmf_tpu_torch import NonconjugateBayesianTensorFiltering
 from functionalmf_tpu_torch.samplers.ess import (draw_ess_noise,
-                                                 elliptical_slice)
+                                                 elliptical_slice_batched)
 
 from tests.test_torch_constrained import torch_one_thread  # noqa: F401
 
@@ -77,7 +77,7 @@ def test_elliptical_slice_matches_jax_under_injected_noise(rng, sharp,
                        max_iters=MAX_ITERS)
         want.append(np.asarray(xb))
         want_ll.append(float(llb))
-    got, got_ll = elliptical_slice(
+    got, got_ll = elliptical_slice_batched(
         _t(x), _t(nu), tll, mu=None if mu is None else _t(mu),
         max_iters=MAX_ITERS, noise=_stack_noise(keys))
     np.testing.assert_allclose(got.numpy(), np.stack(want), atol=1e-5)
@@ -98,8 +98,9 @@ def test_elliptical_slice_hits_the_bound_and_stays_put():
     g = torch.Generator().manual_seed(0)
     log_u, u_phi, u = draw_ess_noise(g, 2, 5, "cpu")
     assert log_u.shape == u_phi.shape == (2,) and u.shape == (5, 2)
-    got, got_ll = elliptical_slice(x, torch.ones_like(x), ll, max_iters=5,
-                                   noise=(log_u, u_phi, u))
+    got, got_ll = elliptical_slice_batched(x, torch.ones_like(x), ll,
+                                           max_iters=5,
+                                           noise=(log_u, u_phi, u))
     np.testing.assert_array_equal(got.numpy(), x.numpy())
     np.testing.assert_array_equal(got_ll.numpy(), [0.0, 0.0])
     assert len(calls) == 1 + 5
@@ -119,7 +120,7 @@ def test_ess_gaussian_posterior_and_mean_offset():
     x = torch.zeros(B, 1)
     for _ in range(30):
         nu = torch.randn(B, 1, generator=g)
-        x, _ = elliptical_slice(
+        x, _ = elliptical_slice_batched(
             x, nu, lambda p: -0.5 * (y - p[:, 0]) ** 2 / s2_lik, g)
     np.testing.assert_allclose(float(x.mean()), post_mean, atol=0.05)
     np.testing.assert_allclose(float(x.var()), post_var, rtol=0.15)
@@ -128,7 +129,8 @@ def test_ess_gaussian_posterior_and_mean_offset():
     x = mu.clone()
     for _ in range(10):
         nu = torch.randn(B, 1, generator=g)
-        x, _ = elliptical_slice(x, nu, lambda p: torch.zeros(B), g, mu=mu)
+        x, _ = elliptical_slice_batched(x, nu, lambda p: torch.zeros(B), g,
+                                        mu=mu)
     np.testing.assert_allclose(float(x.mean()), 2.0, atol=0.08)
     np.testing.assert_allclose(float(x.var()), 1.0, rtol=0.15)
 
@@ -176,22 +178,23 @@ def _pair(nchains=2):
 
 
 def test_w_and_v_updates_match_jax_under_injected_noise(monkeypatch):
-    """One W and one V update per chain: the port's ``elliptical_slice``
-    is given the prior draw the JAX update makes from its key
-    (nonconjugate.py:44-47, 61-64) and JAX's ESS noise; atol=1e-5."""
+    """One W and one V update per chain: the port's
+    ``elliptical_slice_batched`` is given the prior draw the JAX update
+    makes from its key (nonconjugate.py:44-47, 61-64) and JAX's ESS
+    noise; atol=1e-5."""
     from functionalmf_tpu_torch.models import nonconjugate as tnc
     jm, tm = _pair()
     Y, _ = _counts()
     jY, tY = jm.prepare_data(Y), tm.prepare_data(Y)
     mask = np.asarray(jm._wmask)
     injected = {}
-    real = tnc.elliptical_slice
+    real = tnc.elliptical_slice_batched
 
     def patched(x, prior, loglik, gen, max_iters, noise=None):
         return real(x, injected["prior"], loglik, max_iters=max_iters,
                     noise=injected["noise"])
 
-    monkeypatch.setattr(tnc, "elliptical_slice", patched)
+    monkeypatch.setattr(tnc, "elliptical_slice_batched", patched)
     keys = [jax.random.PRNGKey(30 + c) for c in range(tm.nchains)]
     # W
     want, priors, k2s = [], [], []

@@ -12,7 +12,7 @@ import torch
 from functionalmf_tpu.samplers.gass import gass as jgass
 from functionalmf_tpu.samplers.slice1d import shrink_slice_1d as jslice
 from functionalmf_tpu_torch.samplers.gass import (
-    draw_gass_noise, draw_gass_shrink_noise, gass, gass_shrink)
+    draw_gass_noise, draw_gass_shrink_noise, gass_grid, gass_shrink)
 from functionalmf_tpu_torch.samplers.slice1d import shrink_slice_1d
 
 NGRID = 20
@@ -44,9 +44,9 @@ def _run_both(xs, mus, vs, jax_ll, torch_ll, jax_A, torch_A, cs, keys,
         noise.append(_gass_noise(key, NGRID))
     log_u = _t([n[0] for n in noise])
     gumbel = _t(np.stack([n[1] for n in noise]))
-    got, _ = gass(_t(xs), torch_ll, torch_A, _t(cs), v=_t(vs), log_u=log_u,
-                  gumbel=gumbel, mu=_t(mus),
-                  dim_mask=None if dim_masks is None else _t(dim_masks))
+    got, _ = gass_grid(_t(xs), torch_ll, torch_A, _t(cs), v=_t(vs),
+                       log_u=log_u, gumbel=gumbel, mu=_t(mus),
+                       dim_mask=None if dim_masks is None else _t(dim_masks))
     return got.numpy(), np.stack(want)
 
 
@@ -146,11 +146,11 @@ def test_gass_stays_put_when_no_candidate_is_above_the_slice(rng):
                          v=jnp.asarray(vs[b]))
         want.append(np.asarray(x_new))
         log_u, gum = _gass_noise(key, NGRID)
-        x_t, _ = gass(_t(xs[b:b + 1]),
-                      lambda c, b=b: -1e6 * ((c - _t(xs[b])) ** 2).sum(-1),
-                      _t(A[b:b + 1]), _t(cs[b:b + 1]), v=_t(vs[b:b + 1]),
-                      log_u=_t([log_u]), gumbel=_t(gum[None]),
-                      mu=_t(mus[b:b + 1]))
+        x_t, _ = gass_grid(
+            _t(xs[b:b + 1]),
+            lambda c, b=b: -1e6 * ((c - _t(xs[b])) ** 2).sum(-1),
+            _t(A[b:b + 1]), _t(cs[b:b + 1]), v=_t(vs[b:b + 1]),
+            log_u=_t([log_u]), gumbel=_t(gum[None]), mu=_t(mus[b:b + 1]))
         got.append(x_t.numpy()[0])
     np.testing.assert_array_equal(np.stack(got), xs)
     np.testing.assert_array_equal(np.stack(want), xs)
