@@ -26,18 +26,21 @@ Phases (any failure raises and exits non-zero before the last line):
      gather_state, 10 + 10 sweeps: the draws equal the unsharded run on
      the card bit for bit; (b) four gloo ranks sharing the card, mesh
      (dp=2, mp=2), bench.py's generator at 20x20x228 (mp=2 divides 20),
-     the red-black recipe and the seq schedule with EP, and the Gaussian
-     model on phase 6's data at 20x20x228, 1 + 1 sweeps each: every rank
-     launches both kernels of its path at its local shape (R=20, C=4560;
-     P=280 or 20, Tb=8; the counters each rank sends back; the Gaussian
-     path none), all ranks return the same draws, W and V agree with the
-     unsharded run on the card within rtol = atol = 1e-3 (on the GASS
-     paths but for picks that flip: at most 1% of the values), also
-     after 5 more timed sweeps, every recipe draw feasible; the count
-     beyond 1e-3, the phase's seconds, the sweeps/s on the mesh beside the
-     unsharded run's and the collectives a sweep; (c) first two probes on
-     the card, a rank's block of sums against the whole tensor's (torch.sum,
-     _fixed_sum, _window_sum; the Gaussian W Gram by @ and _fixed_sum) and
+     the red-black recipe and the seq schedule with EP, and the Gaussian,
+     Binomial and NegBinom models on the Gaussian and Binomial phases'
+     data at 20x20x228 and the recipe's counts, 1 + 1 sweeps each: every
+     rank launches both kernels of its GASS path at its local shape
+     (R=20, C=4560; P=280 or 20, Tb=8; the counters each rank sends back;
+     the families none), all ranks return the same draws, a family's W,
+     V, nu2 (and R) equal the unsharded run's on the card bit for bit, a
+     GASS path's W and V agree with it within rtol = atol = 1e-3 but for
+     picks that flip (at most 1% of the values), also after 5 more timed
+     sweeps, every recipe draw feasible; the counts that differ, the
+     phase's seconds, the sweeps/s on the mesh beside the unsharded run's
+     and the collectives a sweep; (c) first two probes on the card, a
+     rank's block of sums against the whole tensor's (torch.sum,
+     _fixed_sum, _window_sum; the Gaussian W Gram by @ and _fixed_sum; the
+     families' sites, old and fixed forms) and
      the fused kernels on a rank's items alone against the same items
      inside the unsharded launch (torch.equal; the fixed sums and the
      kernels may not differ); then the same four ranks, (2, 2): the
@@ -406,14 +409,18 @@ MESH_TIMED = 5           # sweeps timed on the mesh and unsharded
 MESH_DEADLINE_S = 300.0
 # what each path of phase (b) must launch on every rank, and at which local
 # shape (2 chains x 10 rows; 2 chains x 10 columns x 14 blocks); the
-# Gaussian model launches no fused kernel
+# conjugate families launch no fused kernel
 MESH_PATHS = {
     "redblack": {"fused_row_ll": "R=20, C=4560",
                  "fused_col_block_ll": "P=280, Tb=8"},
     "seq+EP": {"fused_row_ll_ep": "R=20, C=4560",
                "fused_col_block_ll_ep": "P=20, Tb=8"},
     "gaussian": {},
+    "binomial": {},
+    "negbinom": {},
 }
+# phase (b)'s conjugate-family paths: held to the unsharded run bit for bit
+MESH_FAMILIES = ("gaussian", "binomial", "negbinom")
 
 
 # Phase (b)'s hold on the draws. A sharded sweep computes the unsharded
@@ -558,22 +565,40 @@ def mesh_nccl_phase(dev, Y, Con, W0, V0, nburn=10, nsamples=10):
 def mesh_problem():
     """Phase (b)'s data: bench.py's generator at 20x20x228, EP centres at
     the true rate, sigma sqrt(rate) + 0.5 (wide enough not to hold the
-    chain); and the Gaussian phase's data at 20x20x228 (``Yg``)."""
+    chain); the Gaussian phase's data at 20x20x228 (``Yg``) and a fixed
+    heteroskedastic nu2 for it (``nu2_het``); the Binomial phase's data
+    at 20x20x228 (``YN``)."""
     Y, Con, W0, V0, M = bench_data(MESH_N, MESH_N)
-    Mu, rng = synthetic_mu(MESH_N, MESH_N)
-    Yg = Mu[..., None] + rng.normal(0, 0.5, size=Mu.shape + (2,))
-    Yg[rng.random((MESH_N, MESH_N)) < 0.1] = np.nan
-    return dict(Y=Y, Con=Con, W0=W0, V0=V0, ep=(M, np.sqrt(M) + 0.5), Yg=Yg)
+    nu2_het = np.random.default_rng(7).uniform(0.1, 0.4,
+                                               (MESH_N, MESH_N, NDEPTH))
+    return dict(Y=Y, Con=Con, W0=W0, V0=V0, ep=(M, np.sqrt(M) + 0.5),
+                Yg=gaussian_data(MESH_N, MESH_N), nu2_het=nu2_het,
+                YN=binomial_data(MESH_N, MESH_N)[:2])
 
 
 def mesh_path_model(path, dev, prob, mesh=None):
-    """(model, data) of a phase (b) path, nchains=4 at 20x20x228."""
-    if path == "gaussian":
-        from functionalmf_tpu_torch import GaussianBayesianTensorFiltering
-        return GaussianBayesianTensorFiltering(
-            MESH_N, MESH_N, NDEPTH, device=dev, nembeds=NEMBEDS, tf_order=2,
-            sigma2_init=0.5, lam2_init=0.1, nu2_init=1, seed=0, nchains=4,
-            mesh=mesh), prob["Yg"]
+    """(model, data) of a phase (b) path, nchains=4 at 20x20x228: the
+    recipe's (``redblack``, ``seq+EP``) or a conjugate family's: the
+    Gaussian model with scalar, per-row (``gaussian_row``) or fixed
+    heteroskedastic (``gaussian_hetero``) nu2 on the Gaussian phase's data,
+    the Binomial model on the Binomial phase's, NegBinom (the politics
+    ``--nb`` arm's kwargs, R sampled) on the recipe's counts."""
+    import functionalmf_tpu_torch as fmf
+    common = dict(device=dev, nembeds=NEMBEDS, tf_order=2, sigma2_init=0.5,
+                  lam2_init=0.1, seed=0, nchains=4, mesh=mesh)
+    shape = (MESH_N, MESH_N, NDEPTH)
+    if path.startswith("gaussian"):
+        nu2 = {"gaussian": dict(nu2_init=1),
+               "gaussian_row": dict(nu2_init=1, nu2_mode="row"),
+               "gaussian_hetero": dict(nu2_true=prob["nu2_het"])}[path]
+        return fmf.GaussianBayesianTensorFiltering(
+            *shape, **nu2, **common), prob["Yg"]
+    if path == "binomial":
+        return fmf.BinomialBayesianTensorFiltering(*shape, **common), \
+            prob["YN"]
+    if path == "negbinom":
+        return fmf.NegativeBinomialBayesianTensorFiltering(
+            *shape, nu2_init=1, rdims=(0, 1, 2), **common), prob["Y"]
     Y = prob["Y"]
     return recipe_model(dev, Y.shape, prob["Con"], prob["W0"], prob["V0"],
                         nchains=4, schedule=path, mesh=mesh,
@@ -582,8 +607,9 @@ def mesh_path_model(path, dev, prob, mesh=None):
 
 def gloo_rank(rank, world, prob):
     """Phase (b) on one rank of four sharing the card: the (2, 2) mesh, the
-    red-black recipe, the seq schedule with EP and the Gaussian model, 1 + 1
-    sweeps each; the launches and local shapes of the fused kernels, then
+    red-black recipe, the seq schedule with EP and the conjugate families
+    (MESH_PATHS), 1 + 1 sweeps each; the launches and local shapes of the
+    fused kernels, then
     MESH_TIMED timed sweeps with every collective counted and timed."""
     from functionalmf_tpu_torch.models import constrained as C
     from functionalmf_tpu_torch.ops import fused_ll as F
@@ -636,8 +662,8 @@ def gloo_rank(rank, world, prob):
         out[path] = dict(
             res=_numpy_results(res), timed=_numpy_results(timed),
             launches=launches, shapes=seen,
-            slack=(model._worst_constraint_slack() if path != "gaussian"
-                   else 0.0), seconds=dt,
+            slack=(0.0 if path in MESH_FAMILIES
+                   else model._worst_constraint_slack()), seconds=dt,
             collectives={k: (c[0] / MESH_TIMED, 1e3 * c[1] / MESH_TIMED)
                          for k, c in calls.items()})
     return out
@@ -645,34 +671,39 @@ def gloo_rank(rank, world, prob):
 
 def mesh_gloo_phase(dev):
     """(b): four ranks share the card in a gloo group, mesh (dp=2, mp=2),
-    the GDELT-shaped recipe data at 20x20x228, k=5, nchains=4, ngrid 100:
-    the red-black recipe and the seq schedule with EP centres, and the
-    Gaussian model on the Gaussian phase's data at 20x20x228, 1 + 1 sweeps
-    each, then MESH_TIMED timed sweeps. Every rank launches both kernels
-    of its path at its local shape (the Gaussian path none); every rank
-    returns the same draws, and W and V agree with the unsharded run on
-    the card within rtol = atol = 1e-3 (tests/test_torch_mesh_runs.py)
-    after the 1 + 1 sweeps and after the timed ones but, on the GASS
-    paths, for the picks that flip (at most MESH_FAR_MAX of the values;
-    none on the Gaussian path); every recipe draw is feasible. Prints the
-    phase's seconds and the sweeps/s on the mesh beside the unsharded
-    run's at the same width."""
+    at 20x20x228, k=5, nchains=4: the red-black recipe and the seq schedule
+    with EP centres on the GDELT-shaped recipe data (ngrid 100), and the
+    conjugate families (``MESH_FAMILIES``: the Gaussian, Binomial and
+    NegBinom models of ``mesh_path_model``), 1 + 1 sweeps each, then
+    MESH_TIMED timed sweeps. Every rank launches both kernels of its GASS
+    path at its local shape (the families none) and returns the same
+    draws. A family's W, V and nu2 (and R) equal the unsharded run's on the
+    card bit for bit after the 1 + 1 sweeps and after the timed ones; a
+    GASS path's W and V agree within rtol = atol = 1e-3
+    (tests/test_torch_mesh_runs.py) but for the picks that flip (at most
+    MESH_FAR_MAX of the values), and every recipe draw is feasible.
+    Prints the phase's seconds and each path's sweeps/s on the mesh beside
+    the unsharded run's at the same width."""
     t0 = time.perf_counter()
     prob = mesh_problem()
     outs = spawn_mesh("gloo_rank", 4, "gloo", prob)
     t_ranks = time.perf_counter() - t0
     for schedule, want_shapes in MESH_PATHS.items():
+        t_path = time.perf_counter()
         model, Y = mesh_path_model(schedule, dev, prob)
         ref = model.run_gibbs(Y, nburn=1, nthin=1, nsamples=1,
                               verbose=False)
-        allowed = 0.0 if schedule == "gaussian" else MESH_FAR_MAX
+        family = schedule in MESH_FAMILIES
         t1 = time.perf_counter()
         ref_timed = model.run_gibbs(Y, nburn=MESH_TIMED - 1, nthin=1,
                                     nsamples=1, verbose=False)
         torch.cuda.synchronize()
         unsharded_rate = MESH_TIMED / (time.perf_counter() - t1)
         tag = f"mesh (b) {schedule}"
-        keys = ("W", "V") + (("nu2",) if schedule == "gaussian" else ())
+        keys = ("W", "V") + tuple(k for k in ("nu2", "R")
+                                  if family and k in ref)
+        runs = (("res", "1 + 1", ref),
+                ("timed", f"1 + 1 + {MESH_TIMED}", ref_timed))
         for r, o in enumerate(outs):
             o = o[schedule]
             check_launches(f"{tag} rank {r}", o["launches"], want_shapes)
@@ -682,51 +713,68 @@ def mesh_gloo_phase(dev):
                          f"local shape {shape} (launched at {o['shapes']})")
             # after 1 + 1 sweeps, and after the MESH_TIMED sweeps that
             # follow them
-            for run, when, want in (("res", "1 + 1", ref),
-                                    ("timed", f"1 + 1 + {MESH_TIMED}",
-                                     ref_timed)):
+            for run, when, want in runs:
                 for key in keys:
                     got = o[run][key]
                     if not np.array_equal(got, outs[0][schedule][run][key]):
                         fail(f"{tag} rank {r}: its {key} differs from rank "
                              f"0's after {when} sweeps")
+                    if family:
+                        if not np.array_equal(got, want[key]):
+                            fail(f"{tag} rank {r}: "
+                                 f"{int((got != want[key]).sum())} of "
+                                 f"{got.size} {key} values differ from the "
+                                 f"unsharded run on the card after {when} "
+                                 "sweeps (bit for bit expected)")
+                        continue
                     far = mesh_far_share(got, want[key])
-                    if far > allowed:
+                    if far > MESH_FAR_MAX:
                         fail(f"{tag} rank {r}: {far:.2%} of {key} differs "
                              f"from the unsharded run on the card after "
                              f"{when} sweeps by more than rtol = atol = "
-                             f"1e-3 (at most {allowed:.0%}: the GASS picks "
-                             "that flip)")
-            if schedule == "gaussian":
+                             f"1e-3 (at most {MESH_FAR_MAX:.0%}: the GASS "
+                             "picks that flip)")
+            if family:
                 continue
             tau = np.einsum("snk,smtk->snmt", o["res"]["W"], o["res"]["V"])
             if tau.min() < -1e-5 or o["slack"] < -1e-5:
                 fail(f"{tag} rank {r}: infeasible draw (min tau "
                      f"{tau.min():.3e}, slack {o['slack']:.3e})")
         o0 = outs[0][schedule]
-        diffs = {k: (float(np.abs(o0["res"][k] - ref[k]).max()),
-                     int(round(mesh_far_share(o0["res"][k], ref[k])
-                               * ref[k].size)), ref[k].size)
-                 for k in ("W", "V", "sigma2", "lam2", "nu2") if k in ref}
         print(f"{tag}: launches a rank {json.dumps(o0['launches'])}, local "
               f"shapes {o0['shapes']}")
-        print(f"{tag}: |mesh - unsharded| (max, values beyond 1e-3, values):"
-              f" {json.dumps(diffs)}")
-        far_timed = {k: int(round(mesh_far_share(o0["timed"][k], ref_timed[k])
-                                  * ref_timed[k].size)) for k in keys}
-        print(f"{tag}: values beyond 1e-3 of the unsharded run (gate: "
-              f"at most {allowed:.0%}) after 1 + 1 sweeps "
-              + ", ".join(f"{k} {diffs[k][1]} of {diffs[k][2]}" for k in keys)
-              + f"; after 1 + 1 + {MESH_TIMED} sweeps "
-              + ", ".join(f"{k} {far_timed[k]} of {ref_timed[k].size}"
-                          for k in keys)
-              + "; max abs after them "
-              + json.dumps({k: float(np.abs(o0["timed"][k]
-                                            - ref_timed[k]).max())
-                            for k in keys}))
-        print(f"{tag}: sweeps_per_sec mesh(2,2) "
-              f"{MESH_TIMED / max(o['seconds'] for o in (x[schedule] for x in outs)):.3f}"
-              f" unsharded {unsharded_rate:.3f} (20x20x228, nchains=4)")
+        if family:
+            print(f"{tag}: values that differ in any bit from the unsharded "
+                  "run (gate: 0) "
+                  + "; ".join(f"after {when} sweeps " + ", ".join(
+                      f"{k} {int((o0[run][k] != want[k]).sum())} of "
+                      f"{want[k].size}" for k in keys)
+                      for run, when, want in runs))
+        else:
+            diffs = {k: (float(np.abs(o0["res"][k] - ref[k]).max()),
+                         int(round(mesh_far_share(o0["res"][k], ref[k])
+                                   * ref[k].size)), ref[k].size)
+                     for k in ("W", "V", "sigma2", "lam2") if k in ref}
+            print(f"{tag}: |mesh - unsharded| (max, values beyond 1e-3, "
+                  f"values): {json.dumps(diffs)}")
+            far_timed = {k: int(round(mesh_far_share(
+                o0["timed"][k], ref_timed[k]) * ref_timed[k].size))
+                for k in keys}
+            print(f"{tag}: values beyond 1e-3 of the unsharded run (gate: "
+                  f"at most {MESH_FAR_MAX:.0%}) after 1 + 1 sweeps "
+                  + ", ".join(f"{k} {diffs[k][1]} of {diffs[k][2]}"
+                              for k in keys)
+                  + f"; after 1 + 1 + {MESH_TIMED} sweeps "
+                  + ", ".join(f"{k} {far_timed[k]} of {ref_timed[k].size}"
+                              for k in keys)
+                  + "; max abs after them "
+                  + json.dumps({k: float(np.abs(o0["timed"][k]
+                                                - ref_timed[k]).max())
+                                for k in keys}))
+        mesh_rate = MESH_TIMED / max(x[schedule]["seconds"] for x in outs)
+        print(f"{tag}: sweeps_per_sec mesh(2,2) {mesh_rate:.3f} unsharded "
+              f"{unsharded_rate:.3f} (20x20x228, nchains=4); the unsharded "
+              f"run and the checks {time.perf_counter() - t_path:.1f}s")
         print(f"{tag}: collectives a sweep a rank (calls, ms): "
               f"{json.dumps(o0['collectives'])}")
     print(f"mesh (b) ranks' part: {t_ranks:.1f}s")
@@ -931,8 +979,10 @@ def sum_invariance_probe(dev, draws=50):
     W update's Gram, a row's sum over the 4560 cells of its weights times
     the products of V's entries (nchains 4, 20 rows, 25 products; the
     rank's 2 chains and 10 rows): a batched product (``@``) and
-    ``_fixed_sum`` of the elementwise products. The fixed orders may
-    never differ."""
+    ``_fixed_sum`` of the elementwise products. Then the conjugate
+    families' sites (``family_sum_probe``). No form a model runs may
+    differ: the fixed orders, the V update's Gram einsum and the PG draw's
+    last-axis sum."""
     from functionalmf_tpu_torch.models.base import _fixed_sum, _window_sum
     g = torch.Generator(device=dev).manual_seed(0)
     h = MESH_N // 2
@@ -965,15 +1015,88 @@ def sum_invariance_probe(dev, draws=50):
         for name, f in grams.items():
             differ[f"W Gram {name}"] += int(not torch.equal(
                 f(w, vv)[:2, :h], f(part, vv[:2])))
+    # the forms no model runs any more: reported, not gated
+    replaced = {k for k in differ if k.endswith(("torch.sum", "@"))} \
+        | set(FAMILY_SUMS_REPLACED)
+    differ.update(family_sum_probe(
+        dev, (4, MESH_N, MESH_N, NDEPTH, NEMBEDS), draws))
     print(f"mesh (c): sums of a rank's block against the whole tensor's, "
           f"{draws} random draws each at the lam2 shape (4, {MESH_N}, "
           f"{3 * NDEPTH - 1}, {NEMBEDS}), the full_ll and nu2 shape (4, "
-          f"{MESH_N}, {MESH_N}, {NDEPTH}) and the Gaussian W Gram's (4, "
-          f"{MESH_N}, {P}) x (4, {P}, {kk}): differ in {json.dumps(differ)}")
-    if any(n for k, n in differ.items()
-           if not k.endswith(("torch.sum", "@"))):
-        fail("mesh (c): a fixed-order sum of a rank's block differs from the "
-             "whole tensor's")
+          f"{MESH_N}, {MESH_N}, {NDEPTH}), the Gaussian W Gram's (4, "
+          f"{MESH_N}, {P}) x (4, {P}, {kk}) and the families' sites "
+          f"(family_sum_probe, nchains 4, {MESH_N}x{MESH_N}x{NDEPTH}, "
+          f"k={NEMBEDS}): differ in {json.dumps(differ)}")
+    if any(n for k, n in differ.items() if k not in replaced):
+        fail("mesh (c): a sum the models run differs between a rank's block "
+             "and the whole tensor")
+
+
+# family_sum_probe's forms that the models no longer run (each site's fixed
+# form took its place)
+FAMILY_SUMS_REPLACED = ("W mean @", "V mean einsum", "Mu einsum",
+                        "R sum torch.sum")
+
+
+def family_sum_probe(dev, shape, draws):
+    """The conjugate families' sums, of a (2, 2) rank's block against the
+    same block of the whole call, for ``draws`` random tensors at ``shape``
+    = (nchains, n, m, T, k): the W update's mean part over a row's cells
+    (the rank's chains and rows; ``@``, then
+    ``models/gaussian.py:w_likelihood_terms``), the V update's Gram and
+    mean part over the rows (the rank's chains and columns; the Gram an
+    ``einsum``, the mean part an ``einsum``, then ``v_mean_part``), the
+    cells' mean W V^T (the rank's chains; ``einsum``, then ``cell_means``),
+    NegBinom's R moves' sum of a chain's cells (``torch.sum``, then
+    ``_window_sum``) and the Polya-Gamma draw's sum of its 16 terms along a
+    contiguous last axis (``torch.sum``). Each site in the form the models
+    use, beside the form it replaced where it changed.
+    {site form: draws that differ}."""
+    from functionalmf_tpu_torch.models.base import _window_sum
+    from functionalmf_tpu_torch.models.gaussian import (
+        cell_means, v_mean_part, w_likelihood_terms)
+    nch, n, m, T, k = shape
+    c, r, j = nch // 2, n // 2, m // 2
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*sh):
+        return torch.randn(sh, generator=g, device=dev)
+
+    def cases():
+        w8, wy = rand(nch, n, m, T) ** 2, rand(nch, n, m, T)
+        W, V = rand(nch, n, k), rand(nch, m, T, k)
+        Vf, P = V.reshape(nch, -1, k), m * T
+        yield ("W mean", (w8.reshape(nch, n, P), wy.reshape(nch, n, P), Vf),
+               lambda w, y, v: (w[:c, :r], y[:c, :r], v[:c]),
+               {"@": lambda w, y, v: y @ v,
+                "_fixed_sum": lambda w, y, v: w_likelihood_terms(w, y, v)[1]})
+        cols = lambda w, x: (w[:c, :, :j], x[:c])              # noqa: E731
+        yield ("V Gram", (w8, W), cols,
+               {"einsum": lambda w, x: torch.einsum("cijt,cia,cib->cjtab",
+                                                    w, x, x)})
+        yield ("V mean", (wy, W), cols,
+               {"einsum": lambda y, x: torch.einsum("cijt,cia->cjta", y, x),
+                "_fixed_sum": v_mean_part})
+        yield ("Mu", (W, V), lambda a, b: (a[:c], b[:c]),
+               {"einsum": lambda a, b: torch.einsum("cnk,cmtk->cnmt", a, b),
+                "_fixed_sum": cell_means})
+        agg = (1, 2, 3, 4)
+        yield ("R sum", (wy[..., None] * 10,), lambda a: (a[:c],),
+               {"torch.sum": lambda a: a.sum(agg, keepdim=True),
+                "_window_sum": lambda a: _window_sum(a, agg)})
+        yield ("PG sum", (rand(16, nch, n, m, T) ** 2,), lambda t: (t[:, :c],),
+               {"torch.sum": lambda t: t.movedim(0, -1).contiguous().sum(-1)})
+    differ = {}
+    for _ in range(draws):
+        for site, args, block, forms in cases():
+            part = tuple(a.contiguous() for a in block(*args))
+            for name, f in forms.items():
+                ours = f(*part)
+                whole = f(*args)[tuple(slice(0, s) for s in ours.shape)]
+                key = f"{site} {name}"
+                differ[key] = differ.get(key, 0) + int(
+                    not torch.equal(whole, ours))
+    return differ
 
 
 def launch_invariance_probe(dev, plan=None):
@@ -1373,11 +1496,18 @@ def flutrends_phase():
     return Y
 
 
+def gaussian_data(nrows=NROWS, ncols=NCOLS):
+    """Two replicates of ``synthetic_mu`` with noise sd 0.5, 10% of the
+    curves held out (NaN)."""
+    Mu, rng = synthetic_mu(nrows, ncols)
+    Y = Mu[..., None] + rng.normal(0, 0.5, size=Mu.shape + (2,))
+    Y[rng.random((nrows, ncols)) < 0.1] = np.nan
+    return Y
+
+
 def gaussian_phase(dev, nchains, nburn=30, nsamples=20):
     from functionalmf_tpu_torch import GaussianBayesianTensorFiltering
-    Mu, rng = synthetic_mu()
-    Y = Mu[..., None] + rng.normal(0, 0.5, size=Mu.shape + (2,))
-    Y[rng.random((NROWS, NCOLS)) < 0.1] = np.nan
+    Y = gaussian_data()
     model = GaussianBayesianTensorFiltering(
         NROWS, NCOLS, NDEPTH, device=dev, nembeds=NEMBEDS, tf_order=2,
         sigma2_init=0.5, lam2_init=0.1, nu2_init=1, seed=0, nchains=nchains)
@@ -1399,14 +1529,22 @@ def gaussian_phase(dev, nchains, nburn=30, nsamples=20):
     return model, Y
 
 
-def binomial_phase(dev, nburn=25, nsamples=15):
-    from functionalmf_tpu_torch import BinomialBayesianTensorFiltering
-    Mu, rng = synthetic_mu()
-    N = rng.choice([5.0, 20.0, 80.0], size=Mu.shape)    # both PG branches
+def binomial_data(nrows=NROWS, ncols=NCOLS):
+    """(Y, N, logits, held-out curves): binomial counts of
+    ``synthetic_mu``'s logits, N in {5, 20, 80} (both PG branches), 10% of
+    the curves held out (NaN)."""
+    Mu, rng = synthetic_mu(nrows, ncols)
+    N = rng.choice([5.0, 20.0, 80.0], size=Mu.shape)
     Y = rng.binomial(N.astype(int), 1 / (1 + np.exp(-Mu))).astype(float)
-    hold = rng.random((NROWS, NCOLS)) < 0.1
+    hold = rng.random((nrows, ncols)) < 0.1
     Y[hold] = np.nan
     N[hold] = np.nan
+    return Y, N, Mu, hold
+
+
+def binomial_phase(dev, nburn=25, nsamples=15):
+    from functionalmf_tpu_torch import BinomialBayesianTensorFiltering
+    Y, N, Mu, hold = binomial_data()
     model = BinomialBayesianTensorFiltering(
         NROWS, NCOLS, NDEPTH, device=dev, nembeds=NEMBEDS, tf_order=2,
         sigma2_init=0.5, lam2_init=0.1, seed=0)

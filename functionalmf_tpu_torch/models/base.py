@@ -106,13 +106,16 @@ def _window_sum(x, dims):
     the last first, each output's values summed in index order by one
     thread (``avg_pool2d`` over the whole axis, divisor 1), whatever the
     number of outputs. For a sum called often (the scale moves' full-tensor
-    log-likelihood over rows and time, 34 calls a sweep).
+    log-likelihood over rows and time, 34 calls a sweep; NegBinom's R
+    moves, 30).
 
     The order is how PyTorch's CUDA ``avg_pool2d`` kernel sums a window
     (checked with torch 2.11, CUDA 12.8), not a documented contract: a
     torch build that sums a window otherwise changes it, and the sum probe
     of ``chip_smoke.py`` (phase (c)) is what would show that."""
     for d in sorted(dims, reverse=True):
+        if x.shape[d] == 1:         # a sum of one value: no launch
+            continue
         y = x.movedim(d, -1)
         n = y.shape[-1]
         s = torch.nn.functional.avg_pool2d(y.reshape(1, -1, 1, n), (1, n),

@@ -26,10 +26,13 @@ tensor on every rank of an mp line, from W and V all-gathered over mp:
 they draw and sum what the unsharded run does, and need no other
 collective. The W update is row-local (V all-gathered), the V update's
 banded factorisation column-local (W all-gathered); its repair counts
-are summed over mp (``_Part.cols_sum``). The W update's Gram and the nu2
-draw's sums run in a fixed order (``_fixed_sum``): on the card a batched
-product or a reduction orders its sums by the number of rows or chains
-it holds, and a rank holds a part of them.
+are summed over mp (``_Part.cols_sum``). The W update's Gram and mean
+part, the V update's mean part, the cells' mean W V^T and the nu2 draw's
+sums run in a fixed order (``_fixed_sum``): a batched product or a
+reduction orders its sums by the number of rows, columns or chains it
+holds (on the card, and on the CPU at small shapes), and a rank holds a
+part of them. ``chip_smoke.py:family_sum_probe`` names each such site;
+the V update's Gram (an einsum) was found to keep its bits.
 """
 from __future__ import annotations
 
@@ -49,6 +52,34 @@ __all__ = ["GaussianBayesianTensorFiltering"]
 
 # time steps a super-block of the retiled V factorisation
 _V_SUPERBLOCK = 8
+
+
+def w_likelihood_terms(w8, wy, Vf):
+    """The W update's likelihood terms: every row's Gram sum_p w8[p] V_p
+    V_p^T (nch, n, k, k) and mean part sum_p wy[p] V_p (nch, n, k) over
+    its P cells; w8, wy (nch, n, P), Vf (nch, P, k). Summed in a fixed
+    order (``_fixed_sum``, both in one call), so a row's values have the
+    same bits whatever the number of chains and rows in the call (a batched
+    product orders its sums by them)."""
+    nch, n, k = w8.shape[0], w8.shape[1], Vf.shape[-1]
+    VV = (Vf[:, :, :, None] * Vf[:, :, None, :]).reshape(nch, -1, k * k)
+    terms = torch.cat([w8[..., None] * VV[:, None],
+                       wy[..., None] * Vf[:, None]], -1)
+    s = _fixed_sum(terms, (2,))[:, :, 0]
+    return s[..., :k * k].reshape(nch, n, k, k), s[..., k * k:]
+
+
+def v_mean_part(wy, W):
+    """The V update's mean part sum_i wy[i] W_i (nch, m, T, k) over the n
+    rows; wy (nch, n, m, T), W (nch, n, k). Summed in a fixed order, as
+    ``w_likelihood_terms``."""
+    return _fixed_sum(W[:, :, None, None] * wy[..., None], (1,))[:, 0]
+
+
+def cell_means(W, V):
+    """W V^T over every cell, (nch, n, m, T), summed over k in a fixed
+    order, as ``w_likelihood_terms``; W (nch, n, k), V (nch, m, T, k)."""
+    return _fixed_sum(W[:, :, None, None] * V[:, None], (4,))[..., 0]
 
 
 class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
@@ -139,8 +170,7 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         """W V^T over every cell: (nchains, n, m, T), W and V all-gathered
         over mp where they are split."""
         p = self._part
-        return torch.einsum("cnk,cmtk->cnmt", p.all_rows(state["W"]),
-                            p.all_cols(state["V"]))
+        return cell_means(p.all_rows(state["W"]), p.all_cols(state["V"]))
 
     # ------------------------------------------------------------------
     # batched conjugate updates, shared with the Polya-Gamma subclasses
@@ -159,16 +189,13 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         nch, n, k = p.nc, p.nr, self.nembeds
         w8, wy = p.take(w8, ".r"), p.take(wy, ".r")
         Vf = p.all_cols(state["V"]).reshape(nch, -1, k)        # (nch, P, k)
-        VV = (Vf[:, :, :, None] * Vf[:, :, None, :]).reshape(nch, -1, k * k)
-        # a row's Gram summed over the cells in a fixed order (_fixed_sum;
-        # cells x k^2 values a chain in flight)
-        Q_lik = _fixed_sum(w8.reshape(nch, n, -1, 1) * VV[:, None],
-                           (2,)).reshape(nch, n, k, k)
+        Q_lik, mu_part = w_likelihood_terms(w8.reshape(nch, n, -1),
+                                            wy.reshape(nch, n, -1), Vf)
         mask = self._wmask_rows
         eye = torch.eye(k, device=self.device)
         Q = (Q_lik * mask[:, :, None] * mask[:, None, :]
              + eye / state["sigma2"][:, None, None, None])
-        mu_part = (wy.reshape(nch, n, -1) @ Vf) * mask
+        mu_part = mu_part * mask
         if z is None:
             z = p.take(torch.randn((self.nchains, self.nrows, k),
                                    generator=gen, device=self.device), "cr")
@@ -188,7 +215,7 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         G = torch.einsum("cijt,cia,cib->cjtab", w8, W, W)
         DtLD = self._v_prior_dtld(state["lam2"], state["Tau2"])
         bands = build_v_bands(DtLD, G, penalty_half_bandwidth(self.tf_order))
-        return bands, torch.einsum("cijt,cia->cjta", wy, W)
+        return bands, v_mean_part(wy, W)
 
     def _gaussian_update_V(self, state, w8, wy, gen, z=None):
         """Every column's GLS posterior of every chain through the

@@ -9,6 +9,9 @@ of a step is one masked tensor operation.
 
 Under a mesh the R moves run on the whole tensor on every rank of an mp
 line (models/gaussian.py), R replicated over mp as in the JAX package.
+A move sums a chain's cells in an order fixed by their number alone
+(``_window_sum``): a reduction over a rank's chains orders its sums by
+their number on the card.
 
 Kept from the reference: the clip of the acceptance log-ratio to
 [-10, 1] (factor.py:542) and the R > 1 acceptance gate (factor.py:547),
@@ -19,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from functionalmf_tpu_torch.models.base import _window_sum
 from functionalmf_tpu_torch.models.binomial import (
     BinomialBayesianTensorFiltering)
 from functionalmf_tpu_torch.parallel.mesh import DP_AXIS
@@ -115,7 +119,7 @@ class NegativeBinomialBayesianTensorFiltering(BinomialBayesianTensorFiltering):
             al = (torch.lgamma(Y + Rc) - torch.lgamma(Rc)
                   - torch.lgamma(Y + R0) + torch.lgamma(R0)
                   + (Rc - R0) * log1mP) * rm
-            al = al.sum(self._agg_axes, keepdim=True).reshape(logR.shape)
+            al = _window_sum(al, self._agg_axes).reshape(logR.shape)
             prob = torch.exp(torch.clamp(ap + al, lo, hi))
             accept = (u[i] <= prob) & (torch.exp(cand) > self.r_min)
             logR = torch.where(accept, cand, logR)

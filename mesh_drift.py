@@ -1,30 +1,53 @@
-"""Where a (2, 2) mesh run leaves the unsharded run on the card, and what
-the constrained recipe's scale moves cost: a diagnostic for the card.
+"""Where a (2, 2) mesh run leaves the unsharded run, and what the
+constrained recipe's scale moves cost: a diagnostic, on the card unless
+``--device cpu``.
 
-    python mesh_drift.py drift [--model recipe|gaussian] [--sweeps N]
+    python mesh_drift.py drift [--model MODEL] [--sweeps N] [--device cpu]
+                               [--shape mesh|test] [--threads N]
     python mesh_drift.py scale-moves [--sweeps N]
+    python mesh_drift.py probe [--device cpu] [--threads N]
+    python mesh_drift.py update-ms [--sweeps N]
 
-It imports the ``chip_smoke.py`` and ``functionalmf_tpu_torch`` beside it:
-to drive another checkout, copy the script into that checkout's root.
+It imports the ``chip_smoke.py`` and ``functionalmf_tpu_torch`` beside it
+(and, at the tests' shape, ``tests/torch_mesh_ranks.py``): to drive
+another checkout, copy the script into that checkout's root.
 
-* ``drift``: a model of ``chip_smoke.py``'s phase (b) at 20x20x228, k=5,
-  nchains 4 (``chip_smoke.mesh_path_model``): the bench.py recipe
-  (red-black, ngrid 100, scale moves) or the Gaussian model, for
-  ``--sweeps`` sweeps on a (2, 2) mesh of four gloo ranks sharing the card
-  and unsharded, the global state recorded after every step of every sweep
-  (the prior updates, the W and V updates, the recipe's scale moves, the
-  Gaussian nu2 draw; a rank's state all-gathered). Prints, as one JSON
+* ``drift``: on the card a model of ``chip_smoke.py``'s phase (b) at
+  20x20x228, k=5, nchains 4 (``chip_smoke.mesh_path_model``); with
+  ``--shape test`` (and always with ``--device cpu``) the same model at
+  the mesh tests' shape (``tests/torch_mesh_ranks.py``: the recipe at
+  8x8x6, the families at 6x4x12, k=2, nchains 2; on the CPU
+  ``--threads`` torch threads in every process).
+  ``--model``: the bench.py recipe (red-black, ngrid 100, scale moves),
+  the Gaussian model with scalar, per-row (``gaussian_row``) or fixed
+  heteroskedastic (``gaussian_hetero``) nu2, ``binomial`` or ``negbinom``
+  (R sampled). It runs ``--sweeps`` sweeps on a (2, 2) mesh of four gloo
+  ranks (sharing the card) and unsharded, the global state recorded after
+  every step of every sweep (the prior updates, the W and V updates, the
+  recipe's scale moves, the Gaussian nu2 draw, the Polya-Gamma draw,
+  NegBinom's R moves; a rank's state all-gathered). Prints, as one JSON
   line, the first step whose state differs in any bit and, after each
-  sweep, the W and V values beyond rtol = atol = 1e-3 of the unsharded run.
+  sweep, the W and V values beyond rtol = atol = 1e-3 of the unsharded
+  run.
 * ``scale-moves``: ms a call of the recipe's scale moves
   (``_interweave_scales``) and the full-tensor log-likelihoods they
   evaluate, counted, at 19x19x228 nchains 1 and 20x20x228 nchains 4, a
   synchronise around each call; then a sweep's count of those
   log-likelihoods timed with their per-column sums in one reduction and in
   the fixed orders (:func:`full_ll_ms`).
+* ``probe``: ``chip_smoke.family_sum_probe`` (the conjugate families'
+  sums, a (2, 2) rank's block against the same block of the whole call,
+  each site in its old and its fixed form) at the mesh tests' shape
+  (nchains 2, 6x4x12, k=2) and at phase (b)'s (nchains 4, 20x20x228,
+  k=5), 50 random tensors each.
+* ``update-ms``: the phases (``chip_smoke.where_time_goes``: ms a sweep,
+  a synchronise around each) of the Gaussian model at 19x19x228 nchains 1
+  and at 20x20x228 nchains 4, and of phase (b)'s NegBinom model, twice
+  in turns: to time two trees, run it in each, in turns, inside one
+  call.
 
 The launch-invariance and sum-invariance probes are ``chip_smoke.py``'s
-phase (c). Needs a CUDA card.
+phase (c). Needs a CUDA card unless ``--device cpu``.
 """
 import argparse
 import json
@@ -37,15 +60,18 @@ import torch
 
 import chip_smoke as cs
 
-KEYS = ("W", "V", "sigma2", "lam2", "lam2_a", "Tau2", "nu2")
+KEYS = ("W", "V", "sigma2", "lam2", "lam2_a", "Tau2", "nu2", "R")
 PRIOR_STEPS = ("_update_sigma2", "_update_tau2", "_update_lam2")
+FAMILY_STEPS = PRIOR_STEPS + ("_gaussian_update_W", "_gaussian_update_V")
 STEPS = {
     "recipe": PRIOR_STEPS + ("_update_W_gass", "_update_V_gass",
                              "_interweave_scales"),
-    "gaussian": ("_update_nu2",) + PRIOR_STEPS + ("_gaussian_update_W",
-                                                  "_gaussian_update_V"),
+    "gaussian": ("_update_nu2",) + FAMILY_STEPS,
+    "gaussian_row": ("_update_nu2",) + FAMILY_STEPS,
+    "gaussian_hetero": FAMILY_STEPS,
+    "binomial": ("_pg_update",) + FAMILY_STEPS,
+    "negbinom": ("_update_R", "_pg_update") + FAMILY_STEPS,
 }
-PATHS = {"recipe": "redblack", "gaussian": "gaussian"}
 
 
 def record_steps(model, steps, rec):
@@ -56,27 +82,43 @@ def record_steps(model, steps, rec):
 
         def step(state, *a, _real=real, _name=name, **kw):
             out = _real(state, *a, **kw)
-            g = model._gather({k: out[k] for k in KEYS if k in out},
+            st = out[0] if isinstance(out, tuple) else out   # _pg_update
+            g = model._gather({k: st[k] for k in KEYS if k in st},
                               model._specs)
             rec.append((_name, {k: v.cpu().numpy() for k, v in g.items()}))
             return out
         setattr(model, name, step)
 
 
+def build(what, dev, prob, mesh=None):
+    """(model, data): phase (b)'s model with ``prob`` (mesh_problem()),
+    else the mesh tests' model."""
+    if prob is not None:
+        return cs.mesh_path_model("redblack" if what == "recipe" else what,
+                                  dev, prob, mesh)
+    from tests.torch_mesh_ranks import constrained_model, family_model
+    return (constrained_model("redblack", mesh=mesh, device=dev)
+            if what == "recipe" else family_model(what, mesh=mesh,
+                                                  device=dev))
+
+
 def model_run(what, dev, prob, sweeps, mesh=None):
-    model, Y = cs.mesh_path_model(PATHS[what], dev, prob, mesh)
+    model, Y = build(what, dev, prob, mesh)
     rec = []
     record_steps(model, STEPS[what], rec)
     model.run_gibbs(Y, nburn=sweeps - 1, nthin=1, nsamples=1, verbose=False)
     return rec
 
 
-def drift_rank(rank, world, url, out, what, sweeps, prob):
+def drift_rank(rank, world, url, out, what, sweeps, prob, dev_type,
+               threads):
     try:
         from functionalmf_tpu_torch.parallel.mesh import (init_distributed,
                                                           make_mesh)
+        if dev_type == "cpu":
+            torch.set_num_threads(threads)
         init_distributed(url, world, rank, backend="gloo", timeout_s=600)
-        mesh = make_mesh(2, 2, device_type="cuda")
+        mesh = make_mesh(2, 2, device_type=dev_type)
         rec = model_run(what, mesh.device, prob, sweeps, mesh)
         out.put((rank, "ok", rec if rank == 0 else None))
     except BaseException:                                   # noqa: BLE001
@@ -117,8 +159,8 @@ def compare(mesh_rec, rec, last_step):
 
 
 def drift(args):
-    dev = torch.device("cuda:0")
-    prob = cs.mesh_problem()
+    dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
+    prob = cs.mesh_problem() if args.shape == "mesh" else None
     import queue
     import torch.multiprocessing as tmp
     ctx = tmp.get_context("spawn")
@@ -128,7 +170,8 @@ def drift(args):
     with tempfile.TemporaryDirectory() as rdv:
         url = "file://" + rdv + "/rendezvous"
         procs = [ctx.Process(target=drift_rank, args=(
-            r, 4, url, q, args.model, args.sweeps, prob)) for r in range(4)]
+            r, 4, url, q, args.model, args.sweeps, prob, dev.type,
+            args.threads)) for r in range(4)]
         for p in procs:
             p.start()
         try:
@@ -154,7 +197,8 @@ def drift(args):
         STEPS[args.model][-1])
     print(json.dumps(dict(
         tree=os.path.dirname(os.path.abspath(__file__)), model=args.model,
-        shape=list(prob["Y"].shape), sweeps=args.sweeps,
+        device=args.device, shape=[got[0][0][1]["W"].shape[1]]
+        + list(got[0][0][1]["V"].shape[1:3]), sweeps=args.sweeps,
         mesh_seconds=round(t_mesh, 1), first_difference=first,
         per_sweep=per_sweep)), flush=True)
 
@@ -226,17 +270,70 @@ def full_ll_ms(model, Y, cell, calls, reps=5):
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+def probe(args):
+    dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
+    for tag, shape in (("nchains 2, 6x4x12, k=2", (2, 6, 4, 12, 2)),
+                       ("nchains 4, 20x20x228, k=5", (4, 20, 20, 228, 5))):
+        print(json.dumps(dict(
+            probe=tag, device=args.device, threads=torch.get_num_threads(),
+            draws=50, differ=cs.family_sum_probe(dev, shape, 50))),
+            flush=True)
+
+
+def update_ms(args):
+    from functionalmf_tpu_torch import GaussianBayesianTensorFiltering
+    dev = torch.device("cuda:0")
+    prob = cs.mesh_problem()
+    shape = (cs.NROWS, cs.NCOLS, cs.NDEPTH)
+    runs = {"gaussian 19x19x228 nchains=1": lambda: (
+        GaussianBayesianTensorFiltering(
+            *shape, device=dev, nembeds=cs.NEMBEDS, tf_order=2,
+            sigma2_init=0.5, lam2_init=0.1, nu2_init=1, seed=0, nchains=1),
+        cs.gaussian_data()),
+        "gaussian 20x20x228 nchains=4": lambda: cs.mesh_path_model(
+            "gaussian", dev, prob),
+        "negbinom 20x20x228 nchains=4": lambda: cs.mesh_path_model(
+            "negbinom", dev, prob)}
+    for rep in range(2):
+        for tag, make in runs.items():
+            model, Y = make()
+            ms = cs.where_time_goes(tag, model, Y, cs.BANDED_SWEEP,
+                                    sweeps=args.sweeps, warm=5)
+            print(json.dumps(dict(
+                tree=os.path.dirname(os.path.abspath(__file__)), rep=rep,
+                model=tag, ms=ms)), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("drift", "scale-moves"))
+    ap.add_argument("what", choices=("drift", "scale-moves", "probe",
+                                     "update-ms"))
     ap.add_argument("--model", choices=tuple(STEPS), default="recipe")
     ap.add_argument("--sweeps", type=int, default=12)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="drift and probe only; drift on the cpu runs the "
+                    "mesh tests' shape")
+    ap.add_argument("--shape", choices=("mesh", "test"), default=None,
+                    help="drift's shape: phase (b)'s (the card's default) "
+                    "or the mesh tests' (the CPU's only)")
+    ap.add_argument("--threads", type=int, default=1,
+                    help="torch threads a process on the CPU")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("mesh_drift: needs a CUDA card")
-    from functionalmf_tpu_torch._runtime import require_full_f32
-    require_full_f32()
-    {"drift": drift, "scale-moves": scale_moves}[args.what](args)
+    args.shape = args.shape or ("mesh" if args.device == "cuda" else "test")
+    if args.device == "cpu":
+        if args.shape != "test":
+            raise SystemExit("mesh_drift: the CPU runs the tests' shape")
+        if args.what not in ("drift", "probe"):
+            raise SystemExit("mesh_drift: only drift and probe run on the "
+                             "CPU")
+        torch.set_num_threads(args.threads)
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("mesh_drift: needs a CUDA card")
+        from functionalmf_tpu_torch._runtime import require_full_f32
+        require_full_f32()
+    {"drift": drift, "scale-moves": scale_moves, "probe": probe,
+     "update-ms": update_ms}[args.what](args)
 
 
 if __name__ == "__main__":

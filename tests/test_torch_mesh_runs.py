@@ -10,20 +10,29 @@ joint schedules, the same with 9 rows (indivisible by mp=2: W stays
 whole on every rank, as JAX replicates it), a longer run, the recipe at
 nchains 4 for chip_smoke.py's c4 length (2 + 4 sweeps), and the
 Gaussian (scalar, per-row and fixed heteroskedastic nu2), Binomial and
-NegBinom models at 6x4x12, k=2, nchains=2.
+NegBinom models at 6x4x12, k=2, nchains=2, for 1 + 1 and for 3 + 3
+sweeps.
 
 Tolerance. A sharded run draws what the unsharded run draws, and its
-sums over rows and columns run in a fixed order
-(``models/base.py:_Part._sum``): after 1 + 1 sweeps W, V, sigma2 and lam2
-(and nu2 and R) agree within rtol = atol = 1e-3, JAX's own bound for its
-sharded run (measured here: the constrained runs to the bit; the
-Gaussian, Binomial and NegBinom runs not to the bit, the step not traced
-on the CPU; on the card the Gaussian run is equal to the bit,
-chip_smoke.py phase (b)).
+sums over rows and columns, and every sum found to round by the number
+of chains, rows or columns a rank holds, run in a fixed order
+(``models/base.py:_Part._sum``, ``_fixed_sum``; the families' W and V
+updates in ``models/gaussian.py``, NegBinom's R moves in ``_window_sum``):
+the constrained runs and the family runs equal the unsharded run bit for
+bit (on the card too: chip_smoke.py phase (b)). The 1 + 1 sweep runs of
+the three schedules and of 9 rows are held to rtol = atol = 1e-3, JAX's
+own bound for its sharded run. The rank-free tests at the end hold each
+fixed-order site of the family updates: a rank's block of the call
+equals the same block of the whole call.
 Every rank returns the same results dict."""
 import numpy as np
 import pytest
 
+import torch
+
+from functionalmf_tpu_torch.models.base import _window_sum
+from functionalmf_tpu_torch.models.gaussian import (cell_means, v_mean_part,
+                                                     w_likelihood_terms)
 from tests.torch_mesh_ranks import (constrained_model, family_model,
                                     rank_scenarios, spawn_ranks, unsharded)
 
@@ -31,6 +40,7 @@ SCHEDS = ("redblack", "seq_ep", "joint")
 FAMILIES = ("gaussian", "gaussian_row", "gaussian_hetero", "binomial",
             "negbinom")
 LONG = dict(nburn=25, nsamples=15)
+FAMILY_LONG = dict(nburn=3, nsamples=3)
 # chip_smoke.py's c4: the recipe (red-black, interweave, factor_rebalance)
 # at nchains 4, 2 + 4 sweeps, here at 8x8x12
 C4 = dict(nburn=2, nsamples=4, nchains=4, T=12)
@@ -52,6 +62,8 @@ def runs(tmp_path_factory):
     scen += [("c4", "run_constrained", dict(schedule="redblack", **C4))]
     scen += [("interop", "interop_round_trip", dict(np_state=_np_state()))]
     scen += [(f, "run_family", dict(family=f, nburn=1, nsamples=1))
+             for f in FAMILIES]
+    scen += [(f"{f}_long", "run_family", dict(family=f, **FAMILY_LONG))
              for f in FAMILIES]
     outs = spawn_ranks(rank_scenarios, 4, tmp_path_factory.mktemp("rdv"),
                        (2, 2), scen)
@@ -109,13 +121,9 @@ def test_sharded_run_equals_unsharded(runs, schedule):
     assert got[0]["slack"] >= -1e-5
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_sharded_family_run_equals_unsharded(runs, family):
-    """W rows and V columns over mp: the W update row-local, the banded V
-    update column-local, the nu2 / PG draw and the R moves on the whole
-    tensor on every rank."""
-    got = _ok(runs[1], family)
-    _, ref = unsharded(family_model, family, nburn=1, nsamples=1)
+def _family_equal(runs, family, name, **sweeps):
+    got = _ok(runs[1], name)
+    model, ref = unsharded(family_model, family, **sweeps)
     assert got[0]["local_W"] == (1, 3, 2) and got[0]["local_V"][:2] == (1, 2)
     if family != "gaussian":
         assert got[0]["local_nu2"][:2] == (1, 3)     # nu2 has W's rows
@@ -123,10 +131,29 @@ def test_sharded_family_run_equals_unsharded(runs, family):
         if key == "rhat":
             continue
         for r, o in enumerate(got):
-            np.testing.assert_array_equal(o["res"][key], got[0]["res"][key],
+            np.testing.assert_array_equal(o["res"][key], want,
                                           err_msg=f"rank {r} {key}")
-        np.testing.assert_allclose(got[0]["res"][key], want, rtol=1e-3,
-                                   atol=1e-3, err_msg=key)
+    return model, ref
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_sharded_family_run_equals_unsharded(runs, family):
+    """W rows and V columns over mp: the W update row-local, the banded V
+    update column-local, the nu2 / PG draw and the R moves on the whole
+    tensor on every rank; every rank's draws equal the unsharded run's
+    bit for bit after 1 + 1 sweeps."""
+    _family_equal(runs, family, family, nburn=1, nsamples=1)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_longer_sharded_family_run_equals_unsharded(runs, family):
+    """The same after 3 + 3 sweeps, where a last-bit difference of one
+    sweep would have grown into the draws that follow it; the draws
+    move."""
+    model, ref = _family_equal(runs, family, f"{family}_long", **FAMILY_LONG)
+    S = FAMILY_LONG["nsamples"]
+    assert np.unique(ref["W"][:S], axis=0).shape[0] == S
+    assert not np.allclose(ref["V"][-1], ref["V"][S - 1])
 
 
 def test_indivisible_rows_stay_whole_and_agree(runs):
@@ -183,3 +210,67 @@ def test_recipe_at_the_smoke_runs_length_equals_the_unsharded_run(runs):
                                                 ("nchains", "T")})
     assert not np.allclose(got[0]["res"]["V"][-1], model.V[-1])
     assert got[0]["slack"] >= -1e-5
+
+
+# ----------------------------------------------------------------------
+# the family updates' fixed-order sums, rank-free: a (2, 2) rank's block
+# at the mesh tests' family shape (nchains 2, 6x4x12, k=2)
+# ----------------------------------------------------------------------
+def _family_terms(seed):
+    g = torch.Generator().manual_seed(seed)
+    nch, n, m, T, k = 2, 6, 4, 12, 2
+    w8 = torch.randn((nch, n, m, T), generator=g) ** 2
+    wy = torch.randn((nch, n, m, T), generator=g)
+    return w8, wy, torch.randn((nch, n, k), generator=g), \
+        torch.randn((nch, m, T, k), generator=g)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_w_update_sums_of_a_ranks_rows_equal_the_whole_calls(seed):
+    """The W update's Gram and mean part of a rank's chain and 3 of 6 rows
+    equal the same rows of the call over every chain and row (a batched
+    product ``wy @ V`` differs here in the last bits, on the CPU and on
+    the card)."""
+    w8, wy, _, V = _family_terms(seed)
+    nch, n = w8.shape[:2]
+    Vf = V.reshape(nch, -1, V.shape[-1])
+    whole = w_likelihood_terms(w8.reshape(nch, n, -1),
+                               wy.reshape(nch, n, -1), Vf)
+    part = w_likelihood_terms(w8[:1, :3].reshape(1, 3, -1),
+                              wy[:1, :3].reshape(1, 3, -1), Vf[:1])
+    for a, b in zip(whole, part):
+        assert torch.equal(a[:1, :3], b)
+    torch.testing.assert_close(whole[1], wy.reshape(nch, n, -1) @ Vf,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_v_update_mean_part_of_a_ranks_columns_equals_the_whole_calls(seed):
+    """The V update's mean part of a rank's chain and 2 of 4 columns
+    equals the same columns of the call over every chain and column (the
+    einsum differs here in the last bits on the CPU)."""
+    _, wy, W, _ = _family_terms(seed)
+    whole = v_mean_part(wy, W)
+    assert torch.equal(whole[:1, :2],
+                       v_mean_part(wy[:1, :, :2].contiguous(), W[:1]))
+    torch.testing.assert_close(whole, torch.einsum("cijt,cia->cjta", wy, W),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_cell_means_and_r_sums_of_a_ranks_chain_equal_the_whole_calls(seed):
+    """W V^T of a rank's chain (the nu2 and PG draws and the R moves; the
+    einsum differs here on the card) and the R moves' sum of a chain's
+    cells (a reduction over chains differs on the card at 20x20x228)
+    equal the same chain of the call over both chains."""
+    _, wy, W, V = _family_terms(seed)
+    whole = cell_means(W, V)
+    assert torch.equal(whole[:1], cell_means(W[:1], V[:1]))
+    torch.testing.assert_close(whole, torch.einsum("cnk,cmtk->cnmt", W, V),
+                               rtol=1e-5, atol=1e-5)
+    al = wy[..., None] * 10                  # (nchains, n, m, T, replicates)
+    agg = (1, 2, 3, 4)
+    whole = _window_sum(al, agg)
+    assert torch.equal(whole[:1], _window_sum(al[:1].contiguous(), agg))
+    torch.testing.assert_close(whole, al.sum(agg, keepdim=True), rtol=1e-5,
+                               atol=1e-4)

@@ -116,7 +116,7 @@ SCHEDULES = {
 
 
 def constrained_model(schedule, mesh=None, n=8, m=8, T=6, k=2, nchains=2,
-                      seed=5, cellfn=True, **kw):
+                      seed=5, cellfn=True, device="cpu", **kw):
     """The constrained Poisson model; with ``cellfn=False`` the same
     model through the black-box likelihood ``torch_loglik`` alone."""
     from functionalmf_tpu_torch import (
@@ -124,7 +124,7 @@ def constrained_model(schedule, mesh=None, n=8, m=8, T=6, k=2, nchains=2,
     Y, C, W0, V0, ep = poisson_problem(0, n, m, T, k)
     cfg = dict(SCHEDULES[schedule])
     use_ep = cfg.pop("ep", False)
-    model = Model(n, m, T, torch_loglik, C, device="cpu", nembeds=k,
+    model = Model(n, m, T, torch_loglik, C, device=device, nembeds=k,
                   tf_order=1, sigma2_init=0.5, lam2_init=0.1, W_init=W0,
                   V_init=V0, gass_ngrid=12, seed=seed, nchains=nchains,
                   loglikelihood_cellfn=POISSON if cellfn else None,
@@ -134,7 +134,7 @@ def constrained_model(schedule, mesh=None, n=8, m=8, T=6, k=2, nchains=2,
     return model, Y
 
 
-def family_model(family, mesh=None, nchains=2, seed=3):
+def family_model(family, mesh=None, nchains=2, seed=3, device="cpu"):
     """Every other BTF model at a small shape, with its data."""
     import functionalmf_tpu_torch as fmf
     rng = np.random.default_rng(11)
@@ -143,7 +143,7 @@ def family_model(family, mesh=None, nchains=2, seed=3):
     V = np.cumsum(rng.normal(0, 0.3, (m, T, k)), axis=1)
     Mu = np.einsum("nk,mtk->nmt", W, V)
     common = dict(nembeds=k, tf_order=1, nchains=nchains, seed=seed,
-                  device="cpu", mesh=mesh)
+                  device=device, mesh=mesh)
     if family == "gaussian":
         Y = Mu + rng.normal(0, 0.3, Mu.shape)
         Y[0, 0, :3] = np.nan
