@@ -123,7 +123,15 @@ Phases (any failure raises and exits non-zero before the last line):
      k=3, seed 1, 100 + 100 sweeps an arm: the 9-metric table finite,
      every Poisson-BTF draw positive, its V rounds two seq rounds of 8 and
      a tail of 4, exactly one row and three column launches of the non-EP
-     kernels a sweep and none of the EP ones; BNP-CovReg: the flu-trends
+     kernels a sweep and none of the EP ones; the Gaussian, Binomial and
+     NegBinom examples at seed 1 through their own functions, 16 chains
+     of one model each (1000 + 1000, 1000 + 500, 1000 + 500 sweeps): the
+     mean over the chains of the held-out RMSE and the 90% coverage
+     (Gaussian, over the chains that left the noise mode) or the held-out
+     MAE within four standard errors of the JAX package's at the same
+     seed and counts (on the CPU; kept in tests/examples_anchors.json), no
+     fused kernel launched;
+     BNP-CovReg: the flu-trends
      app with --bnp on its synthetic 50x1x370 tensor at L=10, k=20, 200
      iterations (the app's 10000 cut; 20 stored), beside 10 + 10 BTF
      sweeps at k=5: every stored mu and var_diag finite, var_diag > 0,
@@ -2326,6 +2334,47 @@ def poisson_example_phase():
             f"{m['name']}={v:.4f}" for m, v in zip(E.METRICS, col)))
 
 
+def examples_anchor_phase():
+    """The Gaussian, Binomial and NegBinom examples on the card at one data
+    seed and cut sweeps, several chains of one model each (the data, model,
+    draws and metrics of the examples' own functions): each gated metric's
+    mean over the chains (for the Gaussian, over those that left the mode
+    that reads the signal as noise) within four standard errors of the JAX
+    package's at the same seed and counts, from the JAX chains' spread
+    (tests/examples_anchors.json holds the JAX numbers, from
+    tests/examples_jax.py on the CPU); no fused kernel launched (no cell
+    function on these paths)."""
+    from functionalmf_tpu_torch.examples import anchors
+    from functionalmf_tpu_torch.ops import fused_ll as F
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "examples_anchors.json")) as f:
+        cfg = json.load(f)["card"]
+    for example in anchors.EXAMPLES:
+        sweeps = tuple(cfg["sweeps"][example])
+        F.reset_launch_counts()
+        got = anchors.run(example, cfg["seed"], cfg["seed"], cfg["chains"],
+                          sweeps, "cuda")
+        check_no_launches(f"{example} example", dict(F.launch_counts))
+        if not all(np.isfinite(got[m]).all() for m in anchors.GATED[example]):
+            fail(f"{example} example: non-finite metrics {got}")
+        print(f"{example} example 11x12x20 k=3 seed {cfg['seed']}, "
+              f"{cfg['chains']} chains of {sweeps} sweeps on the card, "
+              f"{got['seconds']:.1f} s: " + " ".join(
+                  f"{m} {json.dumps([round(v, 4) for v in got[m]])}"
+                  for m in anchors.GATED[example])
+              + (f" left the noise mode {sum(got['fitted'])}"
+                 if "fitted" in got else ""))
+        for g in anchors.compare(example, got, cfg["jax"][example]):
+            print(f"{example} example {g['metric']}: port {g['port']:.4f} "
+                  f"over {g['n']} chains, JAX {g['ref']:.4f} over "
+                  f"{g['n_ref']} (the same seed and counts, CPU), "
+                  f"difference {g['diff']:+.4f}, limit {g['limit']:.4f}")
+            if not g["ok"]:
+                fail(f"{example} example: {g['metric']} {g['port']:.4f} "
+                     f"over {g['n']} chains is beyond {g['limit']:.4f} of "
+                     f"the JAX package's {g['ref']:.4f}")
+
+
 def pgds_time_goes(tag, sampler, sweeps=5):
     """ms a sweep of each step of the PGDS sampler, a synchronise around
     each."""
@@ -2779,7 +2828,11 @@ def main():
     poisson_example_phase()
     example = example_problem()
     phase_seconds("the Poisson example", t0)
-    stamp("PGDS and the Poisson example")
+    t0 = time.perf_counter()
+    examples_anchor_phase()
+    phase_seconds("the Gaussian, Binomial and NegBinom examples against "
+                  "the JAX package's", t0)
+    stamp("PGDS and the examples")
     t0 = time.perf_counter()
     bnp_app_phase()
     phase_seconds("BNP-CovReg through the flu-trends app", t0)

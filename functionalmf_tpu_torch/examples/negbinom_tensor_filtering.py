@@ -13,19 +13,22 @@ import os
 import numpy as np
 
 from functionalmf_tpu_torch import NegativeBinomialBayesianTensorFiltering
-from functionalmf_tpu_torch.utils.metrics import (coverage_at, ilogit, mae,
-                                                  mse)
+from functionalmf_tpu_torch.examples.gaussian_tensor_filtering import score
+from functionalmf_tpu_torch.utils.metrics import ilogit
 
 nrows, ncols, ndepth = 11, 12, 20
 nembeds = 3
 nreplicates = 1
+SWEEPS = (10000, 1, 2000)    # nburn, nthin, nsamples
+FAST_SWEEPS = (1000, 1, 500)
 
 
-def init_model(tf_order=2, lam2=0.1, sigma2=0.5, seed=0, device="cuda"):
+def init_model(tf_order=2, lam2=0.1, sigma2=0.5, seed=0, nchains=1,
+               device="cuda"):
     return NegativeBinomialBayesianTensorFiltering(
         nrows, ncols, ndepth, device=device, nembeds=nembeds,
         tf_order=tf_order, sigma2_init=sigma2, lam2_init=lam2, rdims=(1, 2),
-        seed=seed)
+        seed=seed, nchains=nchains)
 
 
 def create_piecewise_constant(rng, break_prob=0.2):
@@ -46,34 +49,43 @@ def create_piecewise_constant(rng, break_prob=0.2):
     return R, P, Mu, Variance
 
 
-def main(argv=None, nburn=None, nthin=None, nsamples=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    if nburn is None:
-        nburn, nthin, nsamples = ((1000, 1, 500) if os.environ.get("FAST")
-                                  else (10000, 1, 2000))
-    rng = np.random.default_rng(args.seed)
-
-    model = init_model(seed=args.seed, device=args.device)
+def make_data(rng):
+    """(the counts with the [:3, :3] curves held out, the truth's mean
+    R P / (1 - P) the metrics read)."""
     R_true, P_true, _, _ = create_piecewise_constant(rng)
     Mu = R_true * P_true / (1 - P_true)
     Y = rng.poisson(rng.gamma(
         np.maximum(R_true[..., None], 1e-6),
         (P_true / (1 - P_true))[..., None],
         size=(nrows, ncols, ndepth, nreplicates))).astype(float)
-    Y_missing = Y.copy()
-    Y_missing[:3, :3] = np.nan
+    Y[:3, :3] = np.nan
+    return Y, Mu
 
-    results = model.run_gibbs(Y_missing, nburn=nburn, nthin=nthin,
-                              nsamples=nsamples, print_freq=100, verbose=True)
+
+def scored_draws(results):
+    """The draws of what the metrics read: the mean R P / (1 - P),
+    (draws, n, m, T)."""
     Ps = ilogit(np.clip(np.einsum("znk,zmtk->znmt", results["W"],
                                   results["V"]), -10, 10))
-    Mu_hat = results["R"] * Ps / (1 - Ps)
-    out = dict(mae=mae(Mu[:3, :3], Mu_hat.mean(0)[:3, :3]),
-               rmse=np.sqrt(mse(Mu[:3, :3], Mu_hat.mean(0)[:3, :3])),
-               coverage=coverage_at(Mu, Mu_hat, 90))
+    return results["R"] * Ps / (1 - Ps)
+
+
+def main(argv=None, nburn=None, nthin=None, nsamples=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if nburn is None:
+        nburn, nthin, nsamples = (FAST_SWEEPS if os.environ.get("FAST")
+                                  else SWEEPS)
+    rng = np.random.default_rng(args.seed)
+
+    model = init_model(seed=args.seed, device=args.device)
+    Y, Mu = make_data(rng)
+
+    results = model.run_gibbs(Y, nburn=nburn, nthin=nthin,
+                              nsamples=nsamples, print_freq=100, verbose=True)
+    out = score(Mu, scored_draws(results))
     print("held-out MAE:  {:.4f}".format(out["mae"]))
     print("held-out RMSE: {:.4f}".format(out["rmse"]))
     print("90% coverage:  {:.1f}%".format(out["coverage"]))

@@ -1,0 +1,177 @@
+"""The JAX package's Gaussian, Binomial and NegBinom examples as chains to
+compare: the counterpart of ``functionalmf_tpu_torch.examples.anchors.run``
+on the CPU.
+
+The JAX examples (examples/) draw their data inside their ``__main__``
+block, so ``make_data`` repeats that draw with the examples' own truth
+functions, and the models are built with the examples' settings plus
+``nchains``. The tests hold ``make_data`` equal to the port's.
+
+    JAX_PLATFORMS=cpu python tests/examples_jax.py --example negbinom \\
+        --data-seed 2 --model-seeds 1 2 3 [--chains C] \\
+        [--sweeps NBURN NTHIN NSAMPLES] [--jobs N] [--escape]
+
+prints one JSON line a model, as the port's ``anchors`` does.
+
+``agree`` is the body of tests/test_torch_examples_anchor*.py: both
+packages on the CPU at one data seed and the counts of
+tests/examples_anchors.json, the port's mean over its chains within the
+rule of ``anchors.compare`` of the JAX package's.
+"""
+import argparse
+import concurrent.futures
+import importlib.util
+import json
+import multiprocessing
+import os
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from functionalmf_tpu_torch.examples import anchors  # noqa: E402
+SWEEPS = {"gaussian": (1000, 1, 1000), "binomial": (10000, 10, 1000),
+          "negbinom": (10000, 1, 2000)}
+ANCHORS = os.path.join(REPO, "tests", "examples_anchors.json")
+
+
+def anchors_data():
+    """tests/examples_anchors.json: the JAX chains' spread at the tests'
+    counts, and their centre and spread at the card's."""
+    with open(ANCHORS) as f:
+        return json.load(f)
+
+
+def agree(example, seed):
+    """Both packages at ``seed`` on the CPU, at the tests' counts and
+    chains: each gated metric's rows of ``anchors.compare``."""
+    data = anchors_data()
+    cfg = data["cpu_test"]
+    sweeps, chains = tuple(cfg["sweeps"][example]), cfg["chains"][example]
+    port = anchors.run(example, seed, seed, chains, sweeps, device="cpu")
+    ref = anchors.summary(example, run(example, seed, seed, chains, sweeps))
+    for m, r in ref.items():
+        r["sd"] = cfg["sd"][example][str(seed)][m]
+    return anchors.compare(example, port, ref)
+
+
+def example_module(example):
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    path = os.path.join(REPO, "examples", f"{example}_tensor_filtering.py")
+    spec = importlib.util.spec_from_file_location(f"jax_{example}_example",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def make_data(example, seed):
+    """The JAX example's data at ``seed``: (the model's data, the truth the
+    metrics read)."""
+    from functionalmf_tpu.utils import ilogit
+    mod = example_module(example)
+    rng = np.random.default_rng(seed)
+    shape = (mod.nrows, mod.ncols, mod.ndepth)
+    if example == "negbinom":
+        R, P, _, _ = mod.create_piecewise_constant(rng)
+        Y = rng.poisson(rng.gamma(np.maximum(R[..., None], 1e-6),
+                                  (P / (1 - P))[..., None],
+                                  size=shape + (1,))).astype(float)
+        Y[:3, :3] = np.nan
+        return Y, R * P / (1 - P)
+    W, V = mod.create_wiggly_with_jumps(rng)
+    Mu = np.einsum("nk,mtk->nmt", W, V)
+    if example == "gaussian":
+        Y = rng.normal(Mu[..., None], np.sqrt(mod.nu2_truth),
+                       size=shape + (1,))
+        Y[:3, :3] = np.nan
+        return Y, Mu
+    N = np.full(shape, float(mod.nreplicates))
+    Y = rng.binomial(mod.nreplicates, ilogit(Mu)).astype(float)
+    Y[:3, :3] = np.nan
+    N[np.isnan(Y)] = np.nan
+    return (Y, N), ilogit(Mu)
+
+
+def run(example, data_seed, model_seed=None, nchains=1, sweeps=None,
+        escape=False):
+    """One JAX model of ``nchains`` chains on the example's data at
+    ``data_seed``: {metric: [one value a chain]} and the seconds the fit
+    took; with ``escape``, {"escape": [first sweep with nu2 < 20]}."""
+    import functionalmf_tpu as pkg
+    from functionalmf_tpu.utils import coverage_at, ilogit, mae, mse
+    mod = example_module(example)
+    data, truth = make_data(example, data_seed)
+    kw = dict(nembeds=mod.nembeds, tf_order=2, sigma2_init=0.5,
+              lam2_init=0.1, nchains=nchains,
+              seed=data_seed if model_seed is None else model_seed)
+    shape = (mod.nrows, mod.ncols, mod.ndepth)
+    if example == "gaussian":
+        model = pkg.GaussianBayesianTensorFiltering(*shape, nu2_init=1, **kw)
+    elif example == "binomial":
+        model = pkg.BinomialBayesianTensorFiltering(*shape, **kw)
+    else:
+        model = pkg.NegativeBinomialBayesianTensorFiltering(
+            *shape, rdims=(1, 2), **kw)
+    nburn, nthin, nsamples = sweeps or SWEEPS[example]
+    if escape:
+        nburn, nthin = 0, 1
+    t0 = time.perf_counter()
+    res = model.run_gibbs(data, nburn=nburn, nthin=nthin, nsamples=nsamples,
+                          verbose=False)
+    seconds = time.perf_counter() - t0
+    if escape:
+        low = np.asarray(res["nu2"]).reshape(nchains, nsamples, -1)[..., 0] \
+            < anchors.ESCAPE_NU2
+        return dict(escape=[int(np.argmax(r)) if r.any() else nsamples
+                            for r in low], seconds=seconds)
+    draws = np.einsum("znk,zmtk->znmt", res["W"], res["V"])
+    if example != "gaussian":
+        P = ilogit(np.clip(draws, -10, 10))
+        draws = P if example == "binomial" else \
+            np.asarray(res["R"]) * P / (1 - P)
+    draws = draws.reshape((nchains, nsamples) + draws.shape[1:])
+    means = draws.mean(1)
+    out = dict(
+        mae=[float(mae(truth[:3, :3], m[:3, :3])) for m in means],
+        rmse=[float(np.sqrt(mse(truth[:3, :3], m[:3, :3]))) for m in means],
+        coverage=[float(coverage_at(truth, d, 90)) for d in draws])
+    if example == "gaussian":
+        nu2 = np.asarray(res["nu2"]).reshape(nchains, nsamples, -1)[..., 0]
+        out["fitted"] = [bool(r.max() < anchors.ESCAPE_NU2) for r in nu2]
+    return dict(out, seconds=seconds)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--example", choices=tuple(SWEEPS), required=True)
+    ap.add_argument("--data-seed", type=int, required=True)
+    ap.add_argument("--model-seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--chains", type=int, default=1)
+    ap.add_argument("--sweeps", type=int, nargs=3, default=None,
+                    metavar=("NBURN", "NTHIN", "NSAMPLES"))
+    ap.add_argument("--jobs", type=int, default=1)
+    ap.add_argument("--escape", action="store_true")
+    args = ap.parse_args(argv)
+    jobs = [(args.example, args.data_seed, s, args.chains, args.sweeps,
+             args.escape) for s in args.model_seeds]
+    if args.jobs == 1:
+        results = (run(*j) for j in jobs)
+    else:
+        pool = concurrent.futures.ProcessPoolExecutor(
+            args.jobs, mp_context=multiprocessing.get_context("spawn"))
+        results = pool.map(run, *zip(*jobs))
+    for j, out in zip(jobs, results):
+        print(json.dumps(dict(package="jax", example=args.example,
+                              data_seed=args.data_seed, model_seed=j[2],
+                              chains=args.chains, sweeps=args.sweeps, **out)),
+              flush=True)
+    if args.jobs > 1:
+        pool.shutdown()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,6 +21,7 @@ MODULES = [
     "functionalmf_tpu_torch.apps.flutrends.create_datasets",
     "functionalmf_tpu_torch.apps.politics.benchmark",
     "functionalmf_tpu_torch.apps.politics.create_datasets",
+    "functionalmf_tpu_torch.examples.anchors",
     "functionalmf_tpu_torch.examples.binomial_tensor_filtering",
     "functionalmf_tpu_torch.examples.gaussian_tensor_filtering",
     "functionalmf_tpu_torch.examples.negbinom_tensor_filtering",
