@@ -210,19 +210,13 @@ def fail(msg):
 
 def bench_data(nrows=NROWS, ncols=NCOLS):
     """bench.py:138-150, seed 42 (its 19 actors unless ``nrows``,
-    ``ncols`` say otherwise)."""
-    rng = np.random.default_rng(42)
-    W = np.abs(rng.normal(1, 0.3, size=(nrows, NEMBEDS)))
-    W[np.triu_indices(NEMBEDS, k=1)] = 0
-    V = np.abs(rng.normal(1, 0.3, size=(ncols, NDEPTH, NEMBEDS)))
-    Y = rng.poisson(np.einsum("nk,mtk->nmt", W, V)).astype(float)
-    hold = rng.random((nrows, ncols)) < 0.1
-    Y[hold] = np.nan
+    ``ncols`` say otherwise): Y, the positivity constraints, W0, V0 and
+    the true rate."""
+    from functionalmf_tpu_torch.examples import recipe
+    (Y, W0, V0), Mu = recipe.make_data(np.random.default_rng(42),
+                                       (nrows, ncols, NDEPTH, NEMBEDS))
     Con = np.concatenate([np.eye(NDEPTH), np.zeros((NDEPTH, 1))], axis=1)
-    W0 = np.abs(rng.normal(1, 0.2, size=(nrows, NEMBEDS)))
-    W0[np.triu_indices(NEMBEDS, k=1)] = 0
-    V0 = np.abs(rng.normal(1, 0.2, size=(ncols, NDEPTH, NEMBEDS)))
-    return Y, Con, W0, V0, np.einsum("nk,mtk->nmt", W, V)
+    return Y, Con, W0, V0, Mu
 
 
 def poisson_loglik(Y, WV, W, V, row=None, col=None):
@@ -2274,14 +2268,11 @@ def pgds_agreement(dev):
 
 def example_problem(seed=1, nembeds=3):
     """The Poisson example's data (seed 1, the first 3x3 curves held out)
-    and its NMF warm start."""
+    and the NMF arm's fit from the same generator."""
     from functionalmf_tpu_torch.examples import poisson_tensor_filtering as E
     from functionalmf_tpu_torch.utils.nmf import tensor_nmf
     rng = np.random.default_rng(seed)
-    W, V = E.create_piecewise_constant(rng)
-    Mu = np.einsum("nk,mtk->nmt", W, V)
-    Y = rng.poisson(Mu[..., None], size=Mu.shape + (1,)).astype(float)
-    Y[:3, :3] = np.nan
+    Y, _ = E.make_data(rng)
     W0, V0 = tensor_nmf(Y, nembeds, rng=rng)
     return Y[..., 0], W0, V0
 
@@ -2334,45 +2325,80 @@ def poisson_example_phase():
             f"{m['name']}={v:.4f}" for m, v in zip(E.METRICS, col)))
 
 
+# the examples whose chains run the fused kernels, and their launches a
+# sweep (row, column): the W update, and the V rounds (the Poisson
+# example's two seq rounds and its tail; the recipe's red and black phases
+# and its tail at T=60)
+ANCHOR_LAUNCHES = {"poisson": (1, 3), "recipe": (1, 3)}
+
+
 def examples_anchor_phase():
-    """The Gaussian, Binomial and NegBinom examples on the card at one data
-    seed and cut sweeps, several chains of one model each (the data, model,
-    draws and metrics of the examples' own functions): each gated metric's
-    mean over the chains (for the Gaussian, over those that left the mode
-    that reads the signal as noise) within four standard errors of the JAX
-    package's at the same seed and counts, from the JAX chains' spread
+    """The examples and the production recipe on the card at one data seed
+    and cut sweeps, several chains of one model each (the data, warm start,
+    model, draws and metrics of the examples' own functions; the recipe at
+    a cut shape): each gated metric's mean over the chains (for the
+    Gaussian, over those that left the mode that reads the signal as noise)
+    within four standard errors of the JAX package's at the same seed,
+    counts and shape, from the JAX chains' spread
     (tests/examples_anchors.json holds the JAX numbers, from
-    tests/examples_jax.py on the CPU); no fused kernel launched (no cell
-    function on these paths)."""
+    tests/examples_jax.py on the CPU). The Gaussian, Binomial and NegBinom
+    launch no fused kernel (no cell function on these paths); the Poisson
+    example's Poisson BTF arm and the recipe launch the non-EP kernels
+    inside their chains, at ANCHOR_LAUNCHES a sweep, and no EP kernel."""
     from functionalmf_tpu_torch.examples import anchors
     from functionalmf_tpu_torch.ops import fused_ll as F
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "examples_anchors.json")) as f:
         cfg = json.load(f)["card"]
+    seconds = {}
     for example in anchors.EXAMPLES:
         sweeps = tuple(cfg["sweeps"][example])
+        shape = cfg["shape"].get(example)
+        nsweeps = sweeps[0] + sweeps[1] * sweeps[2]
+        tag = f"{example} example" if example != "recipe" else "recipe"
         F.reset_launch_counts()
+        t0 = time.perf_counter()
         got = anchors.run(example, cfg["seed"], cfg["seed"], cfg["chains"],
-                          sweeps, "cuda")
-        check_no_launches(f"{example} example", dict(F.launch_counts))
+                          sweeps, "cuda", shape=shape)
+        seconds[example] = time.perf_counter() - t0
+        launches = dict(F.launch_counts)
+        if example in ANCHOR_LAUNCHES:
+            check_launches(tag, launches, ("fused_row_ll",
+                                           "fused_col_block_ll"))
+            row, col = ANCHOR_LAUNCHES[example]
+            if (launches["fused_row_ll"], launches["fused_col_block_ll"]) \
+                    != (row * nsweeps, col * nsweeps):
+                fail(f"{tag}: launches {launches} in {nsweeps} sweeps; "
+                     f"expected {row} row and {col} column launches a sweep")
+            print(f"launches {tag}: {json.dumps(launches)} in {nsweeps} "
+                  f"sweeps of {cfg['chains']} chains, inside the chain")
+        else:
+            check_no_launches(tag, launches)
         if not all(np.isfinite(got[m]).all() for m in anchors.GATED[example]):
-            fail(f"{example} example: non-finite metrics {got}")
-        print(f"{example} example 11x12x20 k=3 seed {cfg['seed']}, "
-              f"{cfg['chains']} chains of {sweeps} sweeps on the card, "
-              f"{got['seconds']:.1f} s: " + " ".join(
+            fail(f"{tag}: non-finite metrics {got}")
+        size = ("x".join(map(str, shape[:3])) + f" k={shape[3]}"
+                if shape else "11x12x20 k=3")
+        print(f"{tag} {size} seed {cfg['seed']}, {cfg['chains']} chains of "
+              f"{sweeps} sweeps on the card, {got['seconds']:.1f} s "
+              f"({seconds[example]:.1f} s with the set-up): " + " ".join(
                   f"{m} {json.dumps([round(v, 4) for v in got[m]])}"
                   for m in anchors.GATED[example])
               + (f" left the noise mode {sum(got['fitted'])}"
                  if "fitted" in got else ""))
         for g in anchors.compare(example, got, cfg["jax"][example]):
-            print(f"{example} example {g['metric']}: port {g['port']:.4f} "
+            print(f"{tag} {g['metric']}: port {g['port']:.4f} "
                   f"over {g['n']} chains, JAX {g['ref']:.4f} over "
                   f"{g['n_ref']} (the same seed and counts, CPU), "
                   f"difference {g['diff']:+.4f}, limit {g['limit']:.4f}")
             if not g["ok"]:
-                fail(f"{example} example: {g['metric']} {g['port']:.4f} "
+                fail(f"{tag}: {g['metric']} {g['port']:.4f} "
                      f"over {g['n']} chains is beyond {g['limit']:.4f} of "
                      f"the JAX package's {g['ref']:.4f}")
+    kernel_gates = sum(seconds[e] for e in ANCHOR_LAUNCHES)
+    print("examples anchor seconds " + json.dumps(
+        {e: round(t, 1) for e, t in seconds.items()})
+        + f"; the gates with the kernels in the chain together "
+        f"{kernel_gates:.1f} s")
 
 
 def pgds_time_goes(tag, sampler, sweeps=5):
@@ -2830,8 +2856,8 @@ def main():
     phase_seconds("the Poisson example", t0)
     t0 = time.perf_counter()
     examples_anchor_phase()
-    phase_seconds("the Gaussian, Binomial and NegBinom examples against "
-                  "the JAX package's", t0)
+    phase_seconds("the examples and the recipe against the JAX package's",
+                  t0)
     stamp("PGDS and the examples")
     t0 = time.perf_counter()
     bnp_app_phase()
@@ -2909,6 +2935,7 @@ def main():
     stamp("the launch profiles")
     print("red-black recipe again, after the profiled kernel phase:")
     slice_run(dev, Y, Con, W0, V0, nchains=1, nburn=20, nsamples=20)
+    stamp("the whole run")
 
     # launches and launches per sweep of each kernel's main path: the
     # bench.py recipe at nchains=1, politics seq (EP)

@@ -1,16 +1,22 @@
-"""The Gaussian, Binomial and NegBinom examples as chains to compare.
+"""The examples and the production recipe as chains to compare.
 
 ``run`` fits one model of ``nchains`` chains to an example's data drawn at
 a data seed, from a model seed, through the example's own ``make_data``,
 ``init_model``, ``scored_draws`` and ``score``, and returns each chain's
 metrics. With the data seed as the model seed and one chain it is the
-example's own run. ``compare`` holds the mean of the chains' metrics to a
-reference's: within ``k`` standard errors of the difference, from the
-reference's chain-to-chain standard deviation on the same data.
+example's own run: for ``poisson`` the Poisson example's Poisson BTF
+arm, warm-started from the example's NMF (``warm_start``, from the data's
+generator as the example's ``main`` draws it), and for ``recipe``
+bench.py's red-black recipe on bench.py's generator
+(``examples/recipe.py``) at ``--shape`` (19x19x228, k=5, by default).
+``compare`` holds the mean of the chains' metrics to a reference's:
+within ``k`` standard errors of the difference, from the reference's
+chain-to-chain standard deviation on the same data.
 
     python -m functionalmf_tpu_torch.examples.anchors --example negbinom \\
         --data-seed 2 --model-seeds 1 2 3 [--chains C] [--device cuda] \\
-        [--sweeps NBURN NTHIN NSAMPLES] [--jobs N] [--escape]
+        [--sweeps NBURN NTHIN NSAMPLES] [--jobs N] [--escape] \\
+        [--shape NROWS NCOLS NDEPTH NEMBEDS]
 
 prints one JSON line a model (each chain's metrics and the seconds). The
 sweeps are the example's own unless cut. ``--jobs`` fits that many models
@@ -32,12 +38,15 @@ import time
 
 import numpy as np
 
-EXAMPLES = ("gaussian", "binomial", "negbinom")
+EXAMPLES = ("gaussian", "binomial", "negbinom", "poisson", "recipe")
 # The metrics the examples' anchors were quoted by: the held-out RMSE and
 # the 90% coverage (Gaussian), the held-out MAE of P (Binomial) and of the
-# mean R P / (1 - P) (NegBinom).
+# mean R P / (1 - P) (NegBinom); the RMSE against the true rate and its
+# 90% coverage (the Poisson example's table; the recipe), and the
+# posterior means of log lam2 and log sigma2 (the recipe, at tf_order=2).
 GATED = {"gaussian": ("rmse", "coverage"), "binomial": ("mae",),
-         "negbinom": ("mae",)}
+         "negbinom": ("mae",), "poisson": ("rmse", "coverage"),
+         "recipe": ("rmse", "coverage", "log_lam2", "log_sigma2")}
 K = 4.0
 # A Gaussian chain may sit for hundreds of sweeps in the mode that reads
 # the signal as noise (Mu near 0, nu2 near the data's variance, where the
@@ -48,20 +57,35 @@ ESCAPE_NU2 = 20.0
 
 
 def example_module(example):
-    return importlib.import_module(
-        f"functionalmf_tpu_torch.examples.{example}_tensor_filtering")
+    name = example if example == "recipe" else f"{example}_tensor_filtering"
+    return importlib.import_module(f"functionalmf_tpu_torch.examples.{name}")
+
+
+def setup(example, data_seed, model_seed, nchains, device, shape=None):
+    """(the model, its data, the truth the metrics read): the data drawn at
+    ``data_seed``, then the warm start from the same generator where the
+    example has one."""
+    mod = example_module(example)
+    rng = np.random.default_rng(data_seed)
+    seed = data_seed if model_seed is None else model_seed
+    if example == "recipe":
+        (Y, W0, V0), truth = mod.make_data(rng, shape or mod.SHAPE)
+        return mod.init_model(W0, V0, seed, nchains, device), Y, truth
+    data, truth = mod.make_data(rng)
+    model = mod.init_model(seed=seed, nchains=nchains, device=device)
+    if example == "poisson":
+        mod.warm_start(model, data, rng)
+    return model, data, truth
 
 
 def run(example, data_seed, model_seed=None, nchains=1, sweeps=None,
-        device="cuda", escape=False):
+        device="cuda", escape=False, shape=None):
     """One model of ``nchains`` chains on the example's data at
     ``data_seed``: {metric: [one value a chain]} and the seconds the fit
     took; with ``escape``, {"escape": [first sweep with nu2 < 20]}."""
     mod = example_module(example)
-    data, truth = mod.make_data(np.random.default_rng(data_seed))
-    model = mod.init_model(
-        seed=data_seed if model_seed is None else model_seed,
-        nchains=nchains, device=device)
+    model, data, truth = setup(example, data_seed, model_seed, nchains,
+                               device, shape)
     nburn, nthin, nsamples = sweeps or mod.SWEEPS
     if escape:
         nburn, nthin = 0, 1
@@ -75,8 +99,10 @@ def run(example, data_seed, model_seed=None, nchains=1, sweeps=None,
         return dict(escape=[int(np.argmax(r)) if r.any() else nsamples
                             for r in low], seconds=seconds)
     draws = mod.scored_draws(res)
-    draws = draws.reshape((nchains, nsamples) + draws.shape[1:])
-    chains = [mod.score(truth, d) for d in draws]
+    draws = [d.reshape((nchains, nsamples) + d.shape[1:]) for d in
+             (draws if isinstance(draws, tuple) else (draws,))]
+    chains = [mod.score(truth, *(d[c] for d in draws))
+              for c in range(nchains)]
     out = {k: [float(c[k]) for c in chains] for k in chains[0]}
     if example == "gaussian":
         nu2 = np.asarray(res["nu2"]).reshape(nchains, nsamples, -1)[..., 0]
@@ -136,9 +162,12 @@ def main(argv=None):
                     metavar=("NBURN", "NTHIN", "NSAMPLES"))
     ap.add_argument("--jobs", type=int, default=1)
     ap.add_argument("--escape", action="store_true")
+    ap.add_argument("--shape", type=int, nargs=4, default=None,
+                    metavar=("NROWS", "NCOLS", "NDEPTH", "NEMBEDS"),
+                    help="the recipe's shape")
     args = ap.parse_args(argv)
     jobs = [(args.example, args.data_seed, s, args.chains, args.sweeps,
-             args.device, args.escape) for s in args.model_seeds]
+             args.device, args.escape, args.shape) for s in args.model_seeds]
     if args.jobs == 1:
         results = (run(*j) for j in jobs)
     else:
@@ -149,7 +178,8 @@ def main(argv=None):
     for j, out in zip(jobs, results):
         print(json.dumps(dict(example=args.example, data_seed=args.data_seed,
                               model_seed=j[2], chains=args.chains,
-                              sweeps=args.sweeps, device=args.device, **out)),
+                              sweeps=args.sweeps, device=args.device,
+                              shape=args.shape, **out)),
               flush=True)
     if args.jobs > 1:
         pool.shutdown()

@@ -8,7 +8,10 @@ RMSE and Poisson NLL, MAE and RMSE against the true rate, and the 50, 75,
 90 and 95% coverage of it): NMF, PGDS at tau 0.25, 0.5 and 1, the
 NegBinom BTF and the constrained Poisson BTF (positivity, optionally
 monotone, through GASS; its candidates in the CUDA kernels on the card).
-``FAST=1`` in the environment runs the short sweep counts. The table is
+``FAST=1`` in the environment runs the short sweep counts. ``make_data``,
+``init_model``, ``warm_start``, ``scored_draws`` and ``score`` are the
+Poisson BTF arm's steps, as ``main`` takes them and as
+``examples/anchors.py`` runs the arm with several chains. The table is
 saved to data/poisson_tensor_filtering/seed<seed>-nembeds<nembeds>/
 results.npy, which ``agg`` averages over seeds and widths.
 
@@ -35,6 +38,8 @@ nrows, ncols, ndepth = 11, 12, 20
 nreplicates = 1
 OUT_ROOT = os.path.join("data", "poisson_tensor_filtering")
 PGDS_TAUS = (0.25, 0.5, 1)
+SWEEPS = (5000, 5, 1000)     # nburn, nthin, nsamples of every arm
+FAST_SWEEPS = (1000, 2, 500)
 
 
 def rowcol_loglikelihood(Y, WV, W, V, row=None, col=None):
@@ -57,10 +62,10 @@ def rowcol_loglikelihood(Y, WV, W, V, row=None, col=None):
 rowcol_cellfn = POISSON
 
 
-def init_model(nembeds, tf_order=0, lam2=0.1, sigma2=0.5, monotone=False,
-               seed=0, device="cuda", **kwargs):
-    """Positivity [I | 0] on every curve; ``monotone`` adds
-    v_t - v_{t+1} >= -0.01."""
+def init_model(nembeds=3, tf_order=0, lam2=0.1, sigma2=0.5, monotone=False,
+               seed=0, nchains=1, device="cuda", **kwargs):
+    """The Poisson BTF arm's model: positivity [I | 0] on every curve;
+    ``monotone`` adds v_t - v_{t+1} >= -0.01."""
     Constraints = np.concatenate([np.eye(ndepth), np.zeros((ndepth, 1))],
                                  axis=1)
     if monotone:
@@ -71,18 +76,29 @@ def init_model(nembeds, tf_order=0, lam2=0.1, sigma2=0.5, monotone=False,
     return ConstrainedNonconjugateBayesianTensorFiltering(
         nrows, ncols, ndepth, rowcol_loglikelihood, Constraints,
         device=device, nembeds=nembeds, tf_order=tf_order,
-        sigma2_init=sigma2, lam2_init=lam2, seed=seed,
+        sigma2_init=sigma2, lam2_init=lam2, seed=seed, nchains=nchains,
         loglikelihood_cellfn=rowcol_cellfn, **kwargs)
 
 
 def setup_sampler(model, Y, monotone=False, rng=None):
-    """The NMF warm start, then the scales drawn again from their priors."""
+    """The NMF warm start, then the scales drawn again from their priors;
+    returns the NMF's (W, V)."""
     nmf_W, nmf_V = tensor_nmf(Y, model.nembeds, monotone=monotone, rng=rng)
     model.W = nmf_W
     model.V = nmf_V
     model._init_lam2()
     model._init_Tau2()
     model._init_sigma2()
+    return nmf_W, nmf_V
+
+
+def warm_start(model, Y, rng):
+    """The example's two NMF fits from ``rng`` after ``make_data``, in
+    ``main``'s order: the NMF arm's, then the Poisson BTF's warm start
+    (``setup_sampler``); returns both as ((W, V) of the arm, (W, V) of the
+    warm start)."""
+    arm = tensor_nmf(Y, model.nembeds, rng=rng)
+    return arm, setup_sampler(model, Y, rng=rng)
 
 
 def create_piecewise_constant(rng, break_prob=0.2, ndims=3):
@@ -97,6 +113,37 @@ def create_piecewise_constant(rng, break_prob=0.2, ndims=3):
             if rng.random() < break_prob:
                 V[j, k] += rng.gamma(1, 1, size=ndims)
     return W, V
+
+
+def draw_counts(rng):
+    """The example's truth and counts: (Y (n, m, T, 1), the true rate Mu
+    (n, m, T))."""
+    W_true, V_true = create_piecewise_constant(rng)
+    Mu = np.einsum("nk,mtk->nmt", W_true, V_true)
+    Y = rng.poisson(Mu[..., None], size=(nrows, ncols, ndepth, nreplicates)
+                    ).astype(float)
+    return Y, Mu
+
+
+def make_data(rng):
+    """(the counts with the [:3, :3] curves held out, the true rate)."""
+    Y, Mu = draw_counts(rng)
+    Y_missing = Y.copy()
+    Y_missing[:3, :3] = np.nan
+    return Y_missing, Mu
+
+
+def scored_draws(results):
+    """The draws of what the metrics read: the rate W V^T, (draws, n, m,
+    T)."""
+    return np.einsum("znk,zmtk->znmt", results["W"], results["V"])
+
+
+def score(truth, draws):
+    """One chain's gated metrics from its draws of the rate (S, n, m, T):
+    the table's "RMSE (true rate)" and "90% Coverage"."""
+    return dict(rmse=float(np.sqrt(mse(truth, draws.mean(0)))),
+                coverage=float(coverage_at(truth, draws, 90)))
 
 
 def _poisson_nll(Y, rate):
@@ -149,8 +196,8 @@ def agg_results(models, metrics, nembeds_options=(2, 3, 5, 10),
 
 def main(argv=None, nburn=None, nthin=None, nsamples=None):
     """The comparison for one width and seed; returns the (9, 6) metrics
-    table with the model names, each arm's seconds, and the Poisson BTF's
-    model and results."""
+    table with the model names, each arm's seconds, the NMF arm's fit, the
+    Poisson BTF's model, results and warm start, and the held-out data."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("args", nargs="*", help="<nembeds> <seed>, or agg")
     ap.add_argument("--device", default="cuda")
@@ -160,15 +207,12 @@ def main(argv=None, nburn=None, nthin=None, nsamples=None):
     nembeds = int(args.args[0]) if len(args.args) > 0 else 3
     seed = int(args.args[1]) if len(args.args) > 1 else 1
     if nburn is None:
-        nburn, nthin, nsamples = ((1000, 2, 500) if os.environ.get("FAST")
-                                  else (5000, 5, 1000))
+        nburn, nthin, nsamples = (FAST_SWEEPS if os.environ.get("FAST")
+                                  else SWEEPS)
     device = torch.device(args.device)
 
     rng = np.random.default_rng(seed)
-    W_true, V_true = create_piecewise_constant(rng)
-    Mu = np.einsum("nk,mtk->nmt", W_true, V_true)
-    Y = rng.poisson(Mu[..., None], size=(nrows, ncols, ndepth, nreplicates)
-                    ).astype(float)
+    Y, Mu = draw_counts(rng)
     Y_missing = Y.copy()
     Y_missing[:3, :3] = np.nan
 
@@ -210,11 +254,11 @@ def main(argv=None, nburn=None, nthin=None, nsamples=None):
     models.append({"name": "NB-BTF", "fit": Mu_nb.mean(0), "samples": Mu_nb})
 
     model = init_model(nembeds, seed=seed, device=device)
-    setup_sampler(model, Y_missing, rng=rng)
+    warm = setup_sampler(model, Y_missing, rng=rng)
     results = timed("Poisson-BTF", lambda: model.run_gibbs(
         Y_missing, nburn=nburn, nthin=nthin, nsamples=nsamples,
         print_freq=1000, verbose=True))
-    Mu_hat = np.einsum("znk,zmtk->znmt", results["W"], results["V"])
+    Mu_hat = scored_draws(results)
     models.append({"name": "Poisson-BTF", "fit": Mu_hat.mean(0),
                    "samples": Mu_hat})
 
@@ -229,7 +273,8 @@ def main(argv=None, nburn=None, nthin=None, nsamples=None):
     os.makedirs(outdir, exist_ok=True)
     np.save(os.path.join(outdir, "results"), metric_results)
     return dict(table=metric_results, names=[m["name"] for m in models],
-                seconds=seconds, model=model, results=results)
+                seconds=seconds, model=model, results=results,
+                data=Y_missing, nmf=(W_nmf, V_nmf), warm=warm)
 
 
 if __name__ == "__main__":

@@ -111,19 +111,22 @@ def _solve_block(G, F, ndims=None):
     return np.where(active, np.clip(X, _FLOOR, np.inf), 0.0)
 
 
-def tensor_nmf(Y, nembeds, monotone=False, max_entry=None,
+def tensor_nmf(Y, nembeds, max_steps=_MAX_STEPS, monotone=False,
+               tol=_TOL, verbose=False, max_entry=None,
+               W=None, V=None, fit_W=True, fit_V=True,
                row_features=None, rng=None):
     """Masked-ALS nonnegative factorization of Y (n, m, T[, r]) from a
-    gamma(1, 1) draw of W then V (then R), 30 steps at most, stopping when
-    the relative drop of the fit error is at most 1e-4 (the JAX package's
-    defaults): returns (W, V), W (n, k) lower-triangular, V (m, T, k),
-    both >= 1e-3 where active; with ``row_features`` (n, p) (NaN =
-    missing) returns (W, V, R), R (p, k) the features' nonnegative
-    loadings, coupled into the row updates. ``max_entry`` caps every
-    entry of the reconstruction (and of W R^T): a row, cell or feature
-    over the cap is solved again under the cap by SLSQP.
-    functionalmf_tpu/utils/nmf.py:tensor_nmf without the knobs no caller
-    sets (given W/V, fit_W/fit_V, max_steps, tol, verbose)."""
+    gamma(1, 1) draw of W then V (then R) unless ``W`` / ``V`` are given,
+    ``max_steps`` steps at most, stopping when the relative drop of the
+    fit error is at most ``tol``: returns (W, V), W (n, k)
+    lower-triangular, V (m, T, k), both >= 1e-3 where active; with
+    ``row_features`` (n, p) (NaN = missing) returns (W, V, R), R (p, k)
+    the features' nonnegative loadings, coupled into the row updates.
+    ``fit_W`` / ``fit_V`` False keep that factor as given (or drawn).
+    ``max_entry`` caps every entry of the reconstruction (and of W R^T): a
+    row, cell or feature over the cap is solved again under the cap by
+    SLSQP. ``verbose`` prints the fit error a step. The signature and
+    defaults of functionalmf_tpu/utils/nmf.py:tensor_nmf."""
     from functionalmf_tpu_torch.utils.pav import factor_pav
 
     rng = np.random.default_rng() if rng is None else rng
@@ -133,10 +136,16 @@ def tensor_nmf(Y, nembeds, monotone=False, max_entry=None,
     n, m, T, _ = Y.shape
     k = int(nembeds)
 
-    W = rng.gamma(1, 1, size=(n, k))
-    if n > 1:
-        W[np.triu_indices(k, k=1)] = 0
-    V = rng.gamma(1, 1, size=(m, T, k))
+    if W is None:
+        W = rng.gamma(1, 1, size=(n, k))
+        if n > 1:
+            W[np.triu_indices(k, k=1)] = 0
+    else:
+        W = np.array(W, dtype=float)
+    if V is None:
+        V = rng.gamma(1, 1, size=(m, T, k))
+    else:
+        V = np.array(V, dtype=float)
     R = None
     if row_features is not None:
         row_features = np.asarray(row_features, dtype=float)
@@ -152,40 +161,45 @@ def tensor_nmf(Y, nembeds, monotone=False, max_entry=None,
     ndims = np.minimum(k, np.arange(n) + 1) if n > 1 else np.full(n, k)
 
     rmse = np.inf
-    for _ in range(_MAX_STEPS):
+    for step in range(max_steps):
+        if verbose:
+            print(f"tensor_nmf step {step}")
         prev_rmse = rmse
 
-        # row subproblems: min over w>=0 of sum_jt cnt * (y - <V_jt, w>)^2
-        G = np.einsum("ijt,jta,jtb->iab", cnt, V, V)      # (n, k, k)
-        F = np.einsum("ijt,jta->ia", Ys, V)               # (n, k)
-        if R is not None:
-            G += np.einsum("ip,pa,pb->iab", rf_cnt, R, R)
-            F += np.einsum("ip,pa->ia", rf_z, R)
-        W = _solve_block(G, F, ndims=ndims)
-        if max_entry is not None:
-            recon_max = np.einsum("ia,jta->ijt", W, V).max(axis=(1, 2))
-            for i in np.nonzero(recon_max > max_entry)[0]:
-                d = ndims[i]
-                W[i, :d] = _capped_resolve(
-                    G[i, :d, :d], F[i, :d], W[i, :d],
-                    V[..., :d].reshape(-1, d), max_entry)
+        if fit_W:
+            # row subproblems: min over w>=0 of sum_jt cnt * (y - <V_jt, w>)^2
+            G = np.einsum("ijt,jta,jtb->iab", cnt, V, V)      # (n, k, k)
+            F = np.einsum("ijt,jta->ia", Ys, V)               # (n, k)
+            if R is not None:
+                G += np.einsum("ip,pa,pb->iab", rf_cnt, R, R)
+                F += np.einsum("ip,pa->ia", rf_z, R)
+            W = _solve_block(G, F, ndims=ndims)
+            if max_entry is not None:
+                recon_max = np.einsum("ia,jta->ijt", W, V).max(axis=(1, 2))
+                for i in np.nonzero(recon_max > max_entry)[0]:
+                    d = ndims[i]
+                    W[i, :d] = _capped_resolve(
+                        G[i, :d, :d], F[i, :d], W[i, :d],
+                        V[..., :d].reshape(-1, d), max_entry)
 
-        # (column, depth) subproblems share W; masks differ per cell
-        G = np.einsum("ijt,ia,ib->jtab", cnt, W, W)       # (m, T, k, k)
-        F = np.einsum("ijt,ia->jta", Ys, W)               # (m, T, k)
-        V = _solve_block(G.reshape(-1, k, k),
-                         F.reshape(-1, k)).reshape(m, T, k)
-        if max_entry is not None:
-            # the reference sums the reconstruction over the rows here (it
-            # takes the maximum in the row step): kept, so that both
-            # packages solve the same cells again (ROADMAP.md, Queue 3)
-            recon_max = np.einsum("ia,jta->jt", W, V)
-            for j, t in zip(*np.nonzero(recon_max > max_entry)):
-                V[j, t] = _capped_resolve(G[j, t], F[j, t], V[j, t], W,
-                                          max_entry)
-        if monotone:
-            for j in range(m):
-                factor_pav(W, V[j], in_place=True)
+        if fit_V:
+            # (column, depth) subproblems share W; masks differ per cell
+            G = np.einsum("ijt,ia,ib->jtab", cnt, W, W)       # (m, T, k, k)
+            F = np.einsum("ijt,ia->jta", Ys, W)               # (m, T, k)
+            V = _solve_block(G.reshape(-1, k, k),
+                             F.reshape(-1, k)).reshape(m, T, k)
+            if max_entry is not None:
+                # the reference sums the reconstruction over the rows here
+                # (it takes the maximum in the row step): kept, so that
+                # both packages solve the same cells again (ROADMAP.md,
+                # Queue 3)
+                recon_max = np.einsum("ia,jta->jt", W, V)
+                for j, t in zip(*np.nonzero(recon_max > max_entry)):
+                    V[j, t] = _capped_resolve(G[j, t], F[j, t], V[j, t], W,
+                                              max_entry)
+            if monotone:
+                for j in range(m):
+                    factor_pav(W, V[j], in_place=True)
 
         if R is not None:
             # feature subproblems: columns of row_features against W rows
@@ -202,6 +216,8 @@ def tensor_nmf(Y, nembeds, monotone=False, max_entry=None,
         rmse = np.sqrt(np.nansum(
             (Y - np.einsum("ia,jta->ijt", W, V)[..., None]) ** 2))
         delta = (prev_rmse - rmse) / rmse if rmse > 0 else 0.0
-        if delta <= _TOL:
+        if verbose:
+            print(f"  rmse {rmse:.5f} delta {delta:.2e}")
+        if delta <= tol:
             break
     return (W, V) if R is None else (W, V, R)

@@ -26,6 +26,7 @@ MODULES = [
     "functionalmf_tpu_torch.examples.gaussian_tensor_filtering",
     "functionalmf_tpu_torch.examples.negbinom_tensor_filtering",
     "functionalmf_tpu_torch.examples.poisson_tensor_filtering",
+    "functionalmf_tpu_torch.examples.recipe",
     "functionalmf_tpu_torch.interop",
     "functionalmf_tpu_torch.models.base",
     "functionalmf_tpu_torch.models.binomial",

@@ -124,6 +124,32 @@ def test_example_runs_on_cpu_and_agg_reads_it(tmp_path, monkeypatch):
     np.testing.assert_array_equal(agg[2], out["table"])
 
 
+@pytest.mark.parametrize("seed", [1, 2])
+def test_anchor_entry_points_draw_what_main_draws(seed, tmp_path,
+                                                  monkeypatch):
+    """``make_data`` and ``warm_start`` from the generator at ``seed`` give
+    the data, the NMF arm's fit and the Poisson BTF's warm start that
+    ``main`` draws at ``seed``, so that examples/anchors.py runs the
+    example's own arm; ``score`` reads the table's "RMSE (true rate)" and
+    "90% Coverage" of the arm's draws."""
+    monkeypatch.chdir(tmp_path)
+    out = tex.main(["3", str(seed), "--device", "cpu"], nburn=1, nthin=1,
+                   nsamples=2)
+    rng = np.random.default_rng(seed)
+    Y, Mu = tex.make_data(rng)
+    model = tex.init_model(seed=seed, device="cpu")
+    arm, warm = tex.warm_start(model, Y, rng)
+    np.testing.assert_array_equal(Y, out["data"])
+    for got, want in zip(arm + warm, out["nmf"] + out["warm"]):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(model.W, out["warm"][0].astype(np.float32))
+    got = tex.score(Mu, tex.scored_draws(out["results"]))
+    col = out["table"][:, tex.MODEL_NAMES.index("Poisson-BTF")]
+    names = [m["name"] for m in tex.METRICS]
+    assert got["rmse"] == pytest.approx(col[names.index("RMSE (true rate)")])
+    assert got["coverage"] == pytest.approx(col[names.index("90% Coverage")])
+
+
 def test_example_runs_on_the_card_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

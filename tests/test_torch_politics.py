@@ -40,6 +40,37 @@ def test_tensor_nmf_matches_jax(monotone):
     np.testing.assert_allclose(Wt, Wj, rtol=RTOL, atol=1e-12)
     np.testing.assert_allclose(Vt, Vj, rtol=RTOL, atol=1e-12)
     assert np.all(np.triu(Wt[:3], 1) == 0) and Vt.min() >= 1e-3
+    # every keyword of the JAX signature at its default gives the same bits
+    Wd, Vd = tnmf.tensor_nmf(Y, 3, 30, monotone, 1e-4, False, None, None,
+                             None, True, True, None,
+                             np.random.default_rng(1))
+    np.testing.assert_array_equal(Wd, Wt)
+    np.testing.assert_array_equal(Vd, Vt)
+
+
+@pytest.mark.parametrize("case", ["fixed_W", "fixed_V", "max_steps"])
+def test_tensor_nmf_signature_matches_jax(case, capsys):
+    """The JAX signature's W, V, fit_W, fit_V, max_steps, tol and verbose,
+    from the same generator."""
+    Y = _counts(np.random.default_rng(3))
+    given = np.random.default_rng(8)
+    W0, V0 = given.gamma(1, 1, (6, 3)), given.gamma(1, 1, (5, 12, 3))
+    kw = dict(fixed_W=dict(W=W0, fit_W=False),
+              fixed_V=dict(V=V0, fit_V=False),
+              max_steps=dict(max_steps=3, tol=0, verbose=True))[case]
+    Wj, Vj = jnmf.tensor_nmf(Y, 3, rng=np.random.default_rng(1), **kw)
+    jax_out = capsys.readouterr().out
+    Wt, Vt = tnmf.tensor_nmf(Y, 3, rng=np.random.default_rng(1), **kw)
+    np.testing.assert_allclose(Wt, Wj, rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(Vt, Vj, rtol=1e-6, atol=1e-12)
+    if case == "fixed_W":
+        np.testing.assert_array_equal(Wt, W0)
+    if case == "fixed_V":
+        np.testing.assert_array_equal(Vt, V0)
+    if case == "max_steps":
+        port_out = capsys.readouterr().out
+        assert port_out.count("tensor_nmf step") == 3
+        assert port_out == jax_out
 
 
 @pytest.mark.parametrize("mode", ["max", "multiplier"])
