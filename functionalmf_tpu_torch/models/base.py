@@ -62,6 +62,7 @@ from functionalmf_tpu_torch.samplers.conjugate import (
 from functionalmf_tpu_torch.samplers.horseshoe import (
     _exponential, lam2_shape, resample_lam2, resample_tau2_ladder,
     sample_horseshoe, sample_horseshoe_plus)
+from functionalmf_tpu_torch.utils import telemetry
 
 __all__ = ["BayesianTensorFiltering", "tril_mask", "packed_w_len"]
 
@@ -236,6 +237,10 @@ class BayesianTensorFiltering:
 
     # draws collected on the device between copies to the host
     max_sweeps_per_call = 1024
+    # keep a run record of every run_gibbs call (utils/telemetry.py):
+    # model.last_run and telemetry.recent(); False makes every span and
+    # counter a no-op
+    trace_runs = True
 
     def __init__(self, nrows, ncols, ndepth, *, device="cuda",
                  nembeds=5, tf_order=2,
@@ -654,19 +659,23 @@ class BayesianTensorFiltering:
         return state
 
     def _prior_sweep(self, state, data, gen, update_W, update_V):
-        """Prior updates, then W, then V (factor.py:112-128 order)."""
-        if self.sample_sigma2:
-            state = self._update_sigma2(state, gen)
-        if self.sample_Tau2:
-            state = self._update_tau2(state, gen)
-        if self.sample_lam2:
-            state = self._update_lam2(state, gen)
+        """Prior updates, then W, then V (factor.py:112-128 order); each
+        a phase of the run record."""
+        with telemetry.phase("prior"):
+            if self.sample_sigma2:
+                state = self._update_sigma2(state, gen)
+            if self.sample_Tau2:
+                state = self._update_tau2(state, gen)
+            if self.sample_lam2:
+                state = self._update_lam2(state, gen)
         if self.sample_W:
-            state = self._nan_guard(state, update_W(state, data, gen),
-                                    names=("W",))
+            with telemetry.phase("w_update"):
+                state = self._nan_guard(state, update_W(state, data, gen),
+                                        names=("W",))
         if self.sample_V:
-            state = self._nan_guard(state, update_V(state, data, gen),
-                                    names=("V",))
+            with telemetry.phase("v_update"):
+                state = self._nan_guard(state, update_V(state, data, gen),
+                                        names=("V",))
         return state
 
     # ------------------------------------------------------------------
@@ -674,6 +683,10 @@ class BayesianTensorFiltering:
     # ------------------------------------------------------------------
     def prepare_data(self, data):
         raise NotImplementedError
+
+    def _check_start(self):
+        """Called by ``run_gibbs`` before it prepares the data: a model
+        that can refuse its start state raises here."""
 
     def _whole_data(self, pdata):
         """The whole prepared pytree, as a hook, ``collect_data_keys`` and
@@ -777,7 +790,9 @@ class BayesianTensorFiltering:
         ``max_sweeps_per_call`` sweeps. Unlike the JAX driver, burn-in is
         not rounded up to whole chunks. Returns numpy arrays with a
         leading sample axis; with nchains > 1 the chains are concatenated
-        chain-major.
+        chain-major. Where the model's ``trace_runs`` is true the call's
+        run record (``utils/telemetry.py``: host- and stream-clock spans,
+        host syncs by site) is kept as ``model.last_run``.
 
         Options (functionalmf_tpu/models/base.py:675-855):
 
@@ -804,9 +819,11 @@ class BayesianTensorFiltering:
           continues from the file and returns the draws of the
           uninterrupted run, bit for bit on one device type. Not with a
           host ``callback``, whose data lives outside ``run_gibbs``.
-        * ``profile_dir``: the first 16 sweeps (at most one chunk) run
-          under ``torch.profiler`` and the trace goes
-          to ``<profile_dir>/trace.json``. The profiler slows every later
+        * ``profile_dir``: the call's head, its first 16 sweeps (at most
+          one chunk) and their flush run under ``torch.profiler`` (the
+          whole call where no sweep follows), with every span of the run
+          record labelled ``fmf:<span>``, and the trace goes to
+          ``<profile_dir>/trace.json``. The profiler slows every later
           launch of the process on the host: do not time a run after it.
         * ``key``: an integer in place of the model's seed for this run's
           sweeps and hook.
@@ -845,92 +862,111 @@ class BayesianTensorFiltering:
             raise ValueError("need nburn >= 0, nthin >= 1, nsamples >= 1")
         collect_data_keys = tuple(collect_data_keys)
         rng = self._rng if key is None else SweepRNG(key, self.device)
-        pdata = self.prepare_data(data)
-        sweep = self._make_sweep()
-        state = self._state
-        M = max(1, int(self.max_sweeps_per_call))
-        total = nburn + nthin * nsamples
-        has_tc = traced_callback is not None
+        with telemetry.record(self) as run, \
+                contextlib.ExitStack() as profiled:
+            if profile_dir:
+                profiled.enter_context(self._profiled(profile_dir, run))
+            self._check_start()
+            pdata = self.prepare_data(data)
+            sweep = self._make_sweep()
+            state = self._state
+            M = max(1, int(self.max_sweeps_per_call))
+            total = nburn + nthin * nsamples
+            has_tc = traced_callback is not None
 
-        step = collected = 0
-        pending, chunks = [], []
-        if checkpoint_path and resume and os.path.exists(checkpoint_path):
-            gstate, step, collected, chunks, pd_ck = self._load_checkpoint(
-                checkpoint_path,
-                pdata_template=self._whole_data(pdata) if has_tc else None)
-            state = self._shard(gstate)
-            if pd_ck is not None:
-                pdata = self._cut_data(pd_ck)
-            if verbose:
-                print("\tResumed at step {} ({} samples)".format(
-                    step, collected))
+            step = collected = 0
+            pending, chunks = [], []
+            if checkpoint_path and resume and os.path.exists(checkpoint_path):
+                gstate, step, collected, chunks, pd_ck = \
+                    self._load_checkpoint(
+                        checkpoint_path,
+                        pdata_template=self._whole_data(pdata) if has_tc
+                        else None)
+                state = self._shard(gstate)
+                if pd_ck is not None:
+                    pdata = self._cut_data(pd_ck)
+                if verbose:
+                    print("\tResumed at step {} ({} samples)".format(
+                        step, collected))
 
-        def snapshot():
-            out = {k: state[k].clone() for k in self._collect_keys}
-            whole = self._whole_data(pdata)
-            for k in collect_data_keys:
-                if isinstance(whole, dict) and k in whole:
-                    out["data:" + k] = whole[k].clone()
-                else:
-                    out[k] = state[k].clone()
-            return out
+            def snapshot():
+                out = {k: state[k].clone() for k in self._collect_keys}
+                whole = self._whole_data(pdata)
+                for k in collect_data_keys:
+                    if isinstance(whole, dict) and k in whole:
+                        out["data:" + k] = whole[k].clone()
+                    else:
+                        out[k] = state[k].clone()
+                return out
 
-        def flush():
-            if pending:
-                stacked = {k: torch.stack([p[k] for p in pending], 0)
-                           for k in pending[0]}
-                # the draws of every rank, once a chunk (sample axis first)
-                stacked = self._gather(stacked, {
-                    k: (None,) + self._specs.get(k, ()) for k in stacked})
-                chunks.append({k: v.float().cpu().numpy()
-                               for k, v in stacked.items()})
-                pending.clear()
-            if checkpoint_path:
-                gstate = self._gather(state, self._specs)
-                if self.mesh is None or self.mesh.rank == 0:
-                    self._save_checkpoint(
-                        checkpoint_path, gstate, step, collected, chunks,
-                        pdata=self._whole_data(pdata) if has_tc else None)
-                if self.mesh is not None:
-                    self.mesh.barrier()
+            def flush():
+                if pending:
+                    stacked = {k: torch.stack([p[k] for p in pending], 0)
+                               for k in pending[0]}
+                    # the draws of every rank, once a chunk (sample axis
+                    # first)
+                    stacked = self._gather(stacked, {
+                        k: (None,) + self._specs.get(k, ()) for k in stacked})
+                    chunks.append({k: v.float().cpu().numpy()
+                                   for k, v in stacked.items()})
+                    run.d2h(sum(v.nbytes for v in chunks[-1].values()))
+                    pending.clear()
+                if checkpoint_path:
+                    gstate = self._gather(state, self._specs)
+                    if self.mesh is None or self.mesh.rank == 0:
+                        self._save_checkpoint(
+                            checkpoint_path, gstate, step, collected, chunks,
+                            pdata=self._whole_data(pdata) if has_tc else None)
+                    if self.mesh is not None:
+                        self.mesh.barrier()
 
-        self._data_dirty = False
-        while step < total:
-            stop = min(total, step + M)
-            with contextlib.ExitStack() as stack:
+            self._data_dirty = False
+            while step < total:
+                stop = min(total, step + M)
                 if profile_dir:
                     stop = min(stop, step + _PROFILE_MAX_SWEEPS)
-                    stack.enter_context(self._profiled(profile_dir))
-                    profile_dir = None
                 while step < stop:
-                    state = sweep(state, pdata, rng.at(SweepRNG.SWEEP, step))
-                    if has_tc:
-                        state, pdata = self._run_hook(
-                            traced_callback, state, pdata,
-                            rng.at(SweepRNG.HOOK, step), step)
-                    elif callback is not None:
-                        self._state = state
-                        callback(self, data, step, **kwargs)
-                        state = self._state
-                        if self._data_dirty:
-                            pdata = self.prepare_data(data)
-                            self._data_dirty = False
-                    step += 1
-                    if verbose and step % print_freq == 0:
-                        print("\tStep {}".format(step))
-                    if step > nburn and (step - nburn) % nthin == 0:
-                        pending.append(snapshot())
-                        collected += 1
-            flush()
-        self._state = state
-        outs = {k: np.concatenate([c[k] for c in chunks])[:nsamples]
-                for k in chunks[0]}
-        # collected data entries have no chain axis
-        data_outs = {k[len("data:"):]: outs.pop(k)
-                     for k in list(outs) if k.startswith("data:")}
-        results = self._format_results(outs, nsamples)
-        results.update(data_outs)
-        self._report_run_health(results, verbose)
+                    with run.sweep():
+                        state = sweep(state, pdata,
+                                      rng.at(SweepRNG.SWEEP, step))
+                        with run.phase("hook"):
+                            if has_tc:
+                                state, pdata = self._run_hook(
+                                    traced_callback, state, pdata,
+                                    rng.at(SweepRNG.HOOK, step), step)
+                            elif callback is not None:
+                                self._state = state
+                                callback(self, data, step, **kwargs)
+                                state = self._state
+                                if self._data_dirty:
+                                    pdata = self.prepare_data(data)
+                                    self._data_dirty = False
+                            step += 1
+                            if verbose and step % print_freq == 0:
+                                print("\tStep {}".format(step))
+                            if step > nburn and (step - nburn) % nthin == 0:
+                                pending.append(snapshot())
+                                collected += 1
+                if step >= total:
+                    run.begin_tail()
+                with run.host("flush"):
+                    flush()
+                if profile_dir:
+                    # the profile holds the head, the first chunk and its
+                    # flush, and the whole call where nothing follows
+                    if step < total:
+                        profiled.close()
+                    profile_dir = None
+            with run.host("report"):
+                self._state = state
+                outs = {k: np.concatenate([c[k] for c in chunks])[:nsamples]
+                        for k in chunks[0]}
+                # collected data entries have no chain axis
+                data_outs = {k[len("data:"):]: outs.pop(k)
+                             for k in list(outs) if k.startswith("data:")}
+                results = self._format_results(outs, nsamples)
+                results.update(data_outs)
+                self._report_run_health(results, verbose)
         return results
 
     def _run_hook(self, traced_callback, state, pdata, gen, step):
@@ -943,8 +979,9 @@ class BayesianTensorFiltering:
                                      else self._cut_data(new))
 
     @contextlib.contextmanager
-    def _profiled(self, profile_dir):
-        """torch.profiler around the block; the trace goes to
+    def _profiled(self, profile_dir, run):
+        """torch.profiler around the block, with the spans of ``run``
+        labelled ``fmf:<span>`` inside it; the trace goes to
         ``<profile_dir>/trace.json`` (``trace.rank<r>.json`` from rank
         r > 0 of a mesh)."""
         from torch.profiler import ProfilerActivity, profile
@@ -953,12 +990,19 @@ class BayesianTensorFiltering:
             acts.append(ProfilerActivity.CUDA)
         os.makedirs(profile_dir, exist_ok=True)
         with profile(activities=acts) as prof:
-            yield
+            run.set_labels(True)
+            try:
+                yield
+            finally:
+                run.set_labels(False)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         rank = 0 if self.mesh is None else self.mesh.rank
         name = "trace.json" if rank == 0 else f"trace.rank{rank}.json"
         prof.export_chrome_trace(os.path.join(profile_dir, name))
+        if self.mesh is not None:
+            # every rank's trace is written when any rank goes on
+            self.mesh.barrier()
 
     def _format_results(self, outs, nsamples):
         """(nsamples, nchains, ...) -> chain-major (nchains*nsamples, ...);

@@ -123,6 +123,7 @@ from functionalmf_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS
 from functionalmf_tpu_torch.samplers.gass import (
     draw_gass_noise, draw_gass_shrink_noise, gass_grid, gass_shrink)
 from functionalmf_tpu_torch.samplers.slice1d import shrink_slice_1d
+from functionalmf_tpu_torch.utils import telemetry
 
 __all__ = ["ConstrainedNonconjugateBayesianTensorFiltering",
            "collapsed_scale_dims", "ep_block_precision"]
@@ -591,12 +592,14 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             return vmap(one)(tau, cands_i)
 
         def loglik(cands):                          # (B, G, k) -> (B, G)
-            G = cands.shape[1]
-            w = (cands * dmask[:, None]).reshape(nch, n, G, k)
-            over_rows = vmap(per_row, in_dims=(0, 0, None) + (0,) * len(ep),
-                             chunk_size=self._chunk(n, G * work))
-            return vmap(lambda w_c, V_c: over_rows(rows, w_c, V_c, *ep))(
-                w, V).reshape(nch * n, G)
+            with telemetry.span("blackbox_ll"):
+                G = cands.shape[1]
+                w = (cands * dmask[:, None]).reshape(nch, n, G, k)
+                over_rows = vmap(per_row,
+                                 in_dims=(0, 0, None) + (0,) * len(ep),
+                                 chunk_size=self._chunk(n, G * work))
+                return vmap(lambda w_c, V_c: over_rows(rows, w_c, V_c, *ep))(
+                    w, V).reshape(nch * n, G)
 
         return loglik
 
@@ -697,6 +700,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         ep = tuple(e.permute(1, 0, 2) for e in self._ep_m)   # (m, n, T)
         data, c0 = self._rows_cols(pdata)[1], self._first(pdata)[1]
         cols = torch.arange(c0, c0 + m, device=self.device)
+        # a copy from a host list: on the card it waits for the stream
+        telemetry.count("sync:block_starts")
         t0s = torch.as_tensor(ph.starts, device=self.device)
         vmap = torch.func.vmap
         if user_cells is None and nblk != 1:
@@ -750,12 +755,14 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         work = n * (T if whole else nblk * size) * self._data_work(pdata)
 
         def loglik(cands):                          # (B, G, D) -> (B, G)
-            G = cands.shape[1]
-            c6 = cands.reshape(nch, m, nblk, G, size, k)
-            over_cols = vmap(per_col, in_dims=(0, 0, 0, None) + (0,) * len(ep),
-                             chunk_size=self._chunk(m, G * work))
-            return vmap(lambda c_c, X_c, W_c: over_cols(
-                cols, c_c, X_c, W_c, *ep))(c6, X, W).reshape(-1, G)
+            with telemetry.span("blackbox_ll"):
+                G = cands.shape[1]
+                c6 = cands.reshape(nch, m, nblk, G, size, k)
+                over_cols = vmap(per_col,
+                                 in_dims=(0, 0, 0, None) + (0,) * len(ep),
+                                 chunk_size=self._chunk(m, G * work))
+                return vmap(lambda c_c, X_c, W_c: over_cols(
+                    cols, c_c, X_c, W_c, *ep))(c6, X, W).reshape(-1, G)
 
         return loglik
 
@@ -1155,7 +1162,8 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
         def sweep(state, y, gen):
             state = self._prior_sweep(state, y, gen, update_W, update_V)
             if self.interweave:
-                state = self._interweave_scales(state, y, gen)
+                with telemetry.phase("scale_moves"):
+                    state = self._interweave_scales(state, y, gen)
             return state
         return sweep
 
@@ -1191,9 +1199,9 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
             worst = min(worst, float(rvals.min()))
         return worst
 
-    def run_gibbs(self, data, *args, **kwargs):
-        """Refuse to sample from an infeasible start: GASS is a valid
-        kernel only from a feasible point."""
+    def _check_start(self):
+        """``run_gibbs`` refuses to sample from an infeasible start: GASS
+        is a valid kernel only from a feasible point."""
         worst = self._worst_constraint_slack()
         if worst < -1e-5:
             raise ValueError(
@@ -1201,4 +1209,3 @@ class ConstrainedNonconjugateBayesianTensorFiltering(BayesianTensorFiltering):
                 f"A@tau - c = {worst:.3e}). GASS requires a feasible "
                 "starting point. Pass feasible W_init/V_init, e.g. a "
                 "nonnegative warm start.")
-        return super().run_gibbs(data, *args, **kwargs)

@@ -29,6 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from functionalmf_tpu_torch.utils import telemetry
+
 __all__ = [
     "build_v_bands",
     "block_banded_matvec",
@@ -281,6 +283,7 @@ def block_banded_cholesky(bands, jitter=0.0, psd_attempts: int = 3,
                                 dim2=-1).abs().mean((-2, -1),
                                                     keepdim=True)[..., None]
         for a in range(psd_attempts):
+            telemetry.count("sync:banded_chol")
             if bool(torch.isfinite(L).all()):
                 break
             bad = ~torch.isfinite(L).all(-1).all(-1).all(-1).all(

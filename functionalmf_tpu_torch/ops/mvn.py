@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from functionalmf_tpu_torch.utils import telemetry
+
 __all__ = ["cholesky_psd", "_solve_lt", "_cho_solve",
            "sample_mvn_from_precision", "sample_mvn_from_covariance",
            "sample_mvn"]
@@ -27,13 +29,17 @@ def cholesky_psd(Q, eps: float = 1e-6, attempts: int = 4):
     Q = 0.5 * (Q + Q.mT)       # jnp.linalg.cholesky symmetrises its input
     L, info = torch.linalg.cholesky_ex(Q)
     bad = (info != 0) | ~torch.isfinite(L).all(dim=(-2, -1))
-    if attempts > 0 and bool(bad.any()):
-        eye = torch.eye(Q.shape[-1], dtype=Q.dtype, device=Q.device)
-        for a in range(attempts):
-            Lr, info_r = torch.linalg.cholesky_ex(Q + (eps * 100.0 ** a) * eye)
-            L = torch.where(bad[..., None, None], Lr, L)
-            bad = bad & ((info_r != 0)
-                         | ~torch.isfinite(Lr).all(dim=(-2, -1)))
+    if attempts > 0:
+        telemetry.count("sync:cholesky_psd")
+        if bool(bad.any()):
+            telemetry.count("cholesky_retries")
+            eye = torch.eye(Q.shape[-1], dtype=Q.dtype, device=Q.device)
+            for a in range(attempts):
+                Lr, info_r = torch.linalg.cholesky_ex(
+                    Q + (eps * 100.0 ** a) * eye)
+                L = torch.where(bad[..., None, None], Lr, L)
+                bad = bad & ((info_r != 0)
+                             | ~torch.isfinite(Lr).all(dim=(-2, -1)))
     return torch.where(bad[..., None, None], torch.nan, L).tril()
 
 

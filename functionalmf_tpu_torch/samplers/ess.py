@@ -18,6 +18,7 @@ import math
 import torch
 
 from functionalmf_tpu_torch.samplers.gass import _on_device, _point
+from functionalmf_tpu_torch.utils import telemetry
 
 __all__ = ["elliptical_slice", "elliptical_slice_batched", "draw_ess_noise"]
 
@@ -96,6 +97,7 @@ def elliptical_slice_batched(x, prior_sample, loglik, gen=None, cur_ll=None,
         llc = torch.where(acc, llp, llc)
         done = done | acc
         phi = torch.where(done, phi, u[it] * (phi_max - phi_min) + phi_min)
+        telemetry.count("sync:ess")
         if bool(done.all()):
             break
     return xc, llc

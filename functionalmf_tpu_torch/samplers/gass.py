@@ -29,6 +29,8 @@ import math
 
 import torch
 
+from functionalmf_tpu_torch.utils import telemetry
+
 __all__ = ["gass", "gass_grid", "draw_gass_noise", "gass_shrink",
            "draw_gass_shrink_noise"]
 
@@ -198,6 +200,7 @@ def gass_shrink(x, loglik, A, c, *, v, log_u, phi, u, mu=None,
         xc = torch.where(acc[:, None], xp, xc)
         llc = torch.where(acc, llp, llc)
         done = done | acc
+        telemetry.count("sync:gass_shrink")
         if bool(done.all()):
             break
     return xc, llc

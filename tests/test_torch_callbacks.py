@@ -233,8 +233,11 @@ def test_resume_carries_row_constraints_a_hook_rewrites(tmp_path):
 
 def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
     """tests/test_driver.py:test_profile_dir_captures_trace for the port:
-    the first sweeps (a bounded number) run under torch.profiler and the
-    trace lands in the directory."""
+    the head and the first sweeps (a bounded number) run under
+    torch.profiler and the trace lands in the directory, with the run
+    record's spans labelled fmf:<span>; where no sweep follows the first
+    chunk, the tail (flush and report) is in it too."""
+    import json
     from functionalmf_tpu_torch.models import base as tbase
     m, Y = _gauss(), _gauss_data()
     monkeypatch.setattr(tbase, "_PROFILE_MAX_SWEEPS", 2)
@@ -245,6 +248,20 @@ def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
                       profile_dir=pdir)
     assert os.path.getsize(os.path.join(pdir, "trace.json")) > 0
     np.testing.assert_array_equal(res["V"], plain["V"])
+
+    def labels(d):
+        with open(os.path.join(d, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        return {e["name"][4:] for e in events
+                if str(e.get("name", "")).startswith("fmf:")}
+
+    spans = {"head", "sweep", "prior", "w_update", "v_update", "hook",
+             "flush"}
+    assert labels(pdir) == spans
+    whole = str(tmp_path / "whole")
+    _gauss().run_gibbs(Y, nburn=1, nthin=1, nsamples=1, verbose=False,
+                       profile_dir=whole)
+    assert labels(whole) == spans | {"tail", "report"}
 
 
 def test_key_replaces_the_seed_of_the_run():

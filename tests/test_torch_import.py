@@ -61,6 +61,7 @@ MODULES = [
     "functionalmf_tpu_torch.utils.nmf",
     "functionalmf_tpu_torch.utils.nmf_bench",
     "functionalmf_tpu_torch.utils.pav",
+    "functionalmf_tpu_torch.utils.telemetry",
 ]
 
 
