@@ -85,22 +85,40 @@ class GammaGridLikelihood:
         """y: (..., R) replicates, NaN = missing; effect: (...). Returns
         (...): the Gamma log-densities summed over the replicates per
         component, then ``logsumexp`` over the components with weights
-        ``probs`` (reference empirical_bayes.py:15-31)."""
+        ``probs`` (reference empirical_bayes.py:15-31).
+
+        The replicates enter through three statistics of each cell, taken
+        before the effect: n, the count of present (non-NaN) replicates,
+        S_log = sum log y and S_y = sum y over them, with y clamped at
+        1e-12. Per component g, with shape a_g and scale s_g =
+        max(scale_grid_g * effect, 1e-12),
+
+            sum_r log Gamma(y_r; a_g, s_g)
+                = (a_g - 1) S_log - S_y / s_g - n (lgamma a_g + a_g log s_g),
+
+        so only (..., G)-wide work follows the effect: lifted over
+        candidates with the data unbatched, the statistics are taken once
+        an item. A cell with no replicate present gives
+        ``logsumexp(log probs)`` for any finite effect. float32 throughout.
+        """
         y = torch.as_tensor(y, dtype=torch.float32, device=self.device) \
             if not isinstance(y, torch.Tensor) else y.float()
         effect = torch.as_tensor(
             effect, dtype=torch.float32, device=self.device) \
             if not isinstance(effect, torch.Tensor) else effect
         shapes = self.shape_grid                       # (G,)
-        yg = y[..., None]                              # (..., R, G)
-        eg = effect[..., None, None]                   # (..., 1, 1)
-        scale = torch.clamp(self.scale_grid * eg, min=1e-12)
-        nan = torch.isnan(yg)
-        y_safe = torch.clamp(torch.where(nan, 1.0, yg), min=1e-12)
-        comp = ((shapes - 1.0) * torch.log(y_safe) - y_safe / scale
-                - self.lgamma_shape - shapes * torch.log(scale))
-        comp = torch.where(nan, 0.0, comp).sum(-2)     # (..., G)
-        return torch.logsumexp(comp + self.log_probs, dim=-1)
+        y_safe = torch.clamp(y, min=1e-12)             # NaN stays NaN
+        n = (~torch.isnan(y)).sum(-1, keepdim=True, dtype=torch.float32)
+        s_log = torch.nansum(torch.log(y_safe), -1, keepdim=True)
+        s_y = torch.nansum(y_safe, -1, keepdim=True)   # (..., 1)
+        # the terms free of the effect, (..., G)
+        fixed = ((shapes - 1.0) * s_log - n * self.lgamma_shape
+                 + self.log_probs)
+        scale = torch.clamp(self.scale_grid * effect[..., None], min=1e-12)
+        # fixed - S_y / s - n a log s, in two passes over (..., G)
+        comp = torch.addcdiv(fixed, s_y, scale, value=-1.0)
+        comp = torch.addcmul(comp, n * shapes, torch.log(scale), value=-1.0)
+        return torch.logsumexp(comp, dim=-1)
 
     def sample(self, effect, size=1, rng=None):
         """Posterior-predictive draws (reference empirical_bayes.py:33-36)."""
