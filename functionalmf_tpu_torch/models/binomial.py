@@ -17,6 +17,7 @@ from functionalmf_tpu_torch.models.gaussian import (
     GaussianBayesianTensorFiltering)
 from functionalmf_tpu_torch.ops.gamma import draw_gamma_mt_noise
 from functionalmf_tpu_torch.ops.polyagamma import polya_gamma
+from functionalmf_tpu_torch.utils import telemetry
 
 __all__ = ["BinomialBayesianTensorFiltering"]
 
@@ -81,8 +82,10 @@ class BinomialBayesianTensorFiltering(GaussianBayesianTensorFiltering):
 
     def _pg_sweep(self, state, pdata, gen, Y, N):
         """The PG draw, then the base order with the Gaussian updates at
-        the drawn weights."""
-        state, w8, wy = self._pg_update(state, Y, N, pdata["mask"], gen)
+        the drawn weights. The draw is a phase of the run record of its
+        own, before ``prior``."""
+        with telemetry.phase("pg_draw"):
+            state, w8, wy = self._pg_update(state, Y, N, pdata["mask"], gen)
 
         def update_W(st, pd, gn):
             return self._gaussian_update_W(st, w8, wy, gn)

@@ -47,6 +47,7 @@ from functionalmf_tpu_torch.ops.mvn import sample_mvn_from_precision
 from functionalmf_tpu_torch.ops.penalty import penalty_half_bandwidth
 from functionalmf_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS
 from functionalmf_tpu_torch.samplers.conjugate import standard_gamma
+from functionalmf_tpu_torch.utils import telemetry
 
 __all__ = ["GaussianBayesianTensorFiltering"]
 
@@ -226,8 +227,11 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         Pivot repairs are never silent: the jitter-rung repairs of a chain
         add to its ``pivot_repairs``, and the Gershgorin shifts (a
         materially perturbed conditional) also to its ``nan_fallbacks``.
+        The band build and the banded draw are spans of the run record,
+        ``v_bands`` and ``banded_sample``.
         """
-        bands, mu_part = self._v_bands(state, w8, wy)
+        with telemetry.span("v_bands"):
+            bands, mu_part = self._v_bands(state, w8, wy)
         zt = None
         if z is None:      # the retiled normals, for every chain
             T, p1, k = bands.shape[-4], bands.shape[-3], bands.shape[-1]
@@ -235,9 +239,10 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
                 (self.nchains, self.ncols)
                 + retiled_noise_shape(T, p1, k, _V_SUPERBLOCK),
                 generator=gen, device=self.device), "cm")
-        Vnew, repaired, gersh = sample_mvn_block_banded_retiled(
-            gen, bands, mu_part=mu_part, B=_V_SUPERBLOCK, equilibrate=True,
-            return_repairs=True, z=z, z_tiled=zt)
+        with telemetry.span("banded_sample"):
+            Vnew, repaired, gersh = sample_mvn_block_banded_retiled(
+                gen, bands, mu_part=mu_part, B=_V_SUPERBLOCK,
+                equilibrate=True, return_repairs=True, z=z, z_tiled=zt)
         p = self._part
         return dict(state, V=Vnew,
                     pivot_repairs=state["pivot_repairs"]

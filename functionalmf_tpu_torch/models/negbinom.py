@@ -26,6 +26,7 @@ from functionalmf_tpu_torch.models.base import _window_sum
 from functionalmf_tpu_torch.models.binomial import (
     BinomialBayesianTensorFiltering)
 from functionalmf_tpu_torch.parallel.mesh import DP_AXIS
+from functionalmf_tpu_torch.utils import telemetry
 
 __all__ = ["NegativeBinomialBayesianTensorFiltering"]
 
@@ -128,7 +129,8 @@ class NegativeBinomialBayesianTensorFiltering(BinomialBayesianTensorFiltering):
     def _make_sweep(self):
         def sweep(state, pdata, gen):
             if self.sample_R:
-                state = self._update_R(state, pdata, gen)
+                with telemetry.phase("r_moves"):
+                    state = self._update_R(state, pdata, gen)
             # the binomial reduction: successes summed over replicates,
             # N = sum_reps(Y + R) (factor.py:507-511, 553)
             rm = pdata["repmask"]

@@ -12,8 +12,10 @@ no-op that returns one shared null context, and neither is touched.
 The spans nest so; a layer's self time is its span less its children's::
 
     call  > head | sweep ... | flush (mid-run) | tail
-    sweep > prior | w_update | v_update | scale_moves | hook
+    sweep > r_moves | pg_draw | prior | w_update | v_update | scale_moves
+            | hook
     w_update, v_update > blackbox_ll
+    v_update > v_bands | banded_sample
     tail  > flush | report
 
 * ``head`` (host clock): from the call's entry to its first sweep's first
@@ -22,15 +24,19 @@ The spans nest so; a layer's self time is its span less its children's::
 * ``sweep`` and its phases (stream clock): an event recorded on the
   model's stream at every phase boundary and never waited on. The phases
   tile their sweep and each sweep starts where the one before ended, so
-  prior + w_update + v_update + scale_moves + hook = sweep. ``prior``:
-  the re-draws before W (sigma2, Tau2, lam2, and a family's own: nu2, R,
-  the Polya-gamma draw); ``w_update``, ``v_update``: the factor updates
-  with their non-finite guard; ``scale_moves``: the constrained models'
-  interweaving; ``hook``: the hook or host callback and the draw's
-  snapshot. ``blackbox_ll``: each lifted call of the user's likelihood
-  in the W and V updates. The events are resolved into sums at each
-  flush, once the draws' copy has waited for the stream; the record keeps
-  no event past a flush. On the CPU the same spans read the host clock.
+  the phases that ran add up to the sweep. ``r_moves``: NegBinom's
+  Metropolis moves on its dispersion R; ``pg_draw``: the Polya-Gamma
+  models' draw of omega (with NegBinom's pseudo-counts); ``prior``: the
+  re-draws before W (sigma2, Tau2, lam2, and the Gaussian model's nu2);
+  ``w_update``, ``v_update``: the factor updates with their non-finite
+  guard; ``scale_moves``: the constrained models' interweaving; ``hook``:
+  the hook or host callback and the draw's snapshot. ``blackbox_ll``:
+  each lifted call of the user's likelihood in the W and V updates;
+  ``v_bands``, ``banded_sample``: the conjugate V update's band build
+  (the likelihood Gram and the prior's bands) and its block-banded draw.
+  The events are resolved into sums at each flush, once the draws' copy
+  has waited for the stream; the record keeps no event past a flush. On
+  the CPU the same spans read the host clock.
 * ``tail`` (host clock): from the moment the stream has finished the last
   sweep (the one wait the record adds a call, on that sweep's last event:
   the draws' copy waits for the same work) to the return: the last

@@ -255,8 +255,9 @@ def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
         return {e["name"][4:] for e in events
                 if str(e.get("name", "")).startswith("fmf:")}
 
-    spans = {"head", "sweep", "prior", "w_update", "v_update", "hook",
-             "flush"}
+    # the Gaussian V update's two spans are labelled too
+    spans = {"head", "sweep", "prior", "w_update", "v_update", "v_bands",
+             "banded_sample", "hook", "flush"}
     assert labels(pdir) == spans
     whole = str(tmp_path / "whole")
     _gauss().run_gibbs(Y, nburn=1, nthin=1, nsamples=1, verbose=False,

@@ -102,7 +102,8 @@ def test_the_spans_account_for_the_call(family):
     assert rec is telemetry.recent()[-1]
     sm, host = rec["stream_ms"], rec["host_ms"]
     ran = {"recipe": PHASES, "blackbox": PHASES + ("blackbox_ll",),
-           "gaussian": ("prior", "w_update", "v_update", "hook")}[family]
+           "gaussian": ("prior", "w_update", "v_update", "hook", "v_bands",
+                        "banded_sample")}[family]
     assert set(sm) == {"sweep", *ran}
     assert sum(sm.get(p, 0.0) for p in PHASES) == pytest.approx(
         sm["sweep"], rel=0.05)
@@ -113,6 +114,8 @@ def test_the_spans_account_for_the_call(family):
     assert host["flush"] + host["report"] <= host["tail"]
     if family == "blackbox":
         assert 0 < sm["blackbox_ll"] <= sm["w_update"] + sm["v_update"]
+    if family == "gaussian":        # the conjugate V update's two spans
+        assert 0 < sm["v_bands"] + sm["banded_sample"] <= sm["v_update"]
     # every sync site the sweeps passed, none outside them
     syncs = rec["counts"]["sweep"]
     per_sweep = {"recipe": {"sync:cholesky_psd": 3},
