@@ -81,7 +81,13 @@ Phases (any failure raises and exits non-zero before the last line):
      non-finite fallbacks) exceed 1% of the factored blocks;
   7. Binomial on synthetic (Y, N) and NegBinom through the politics app's
      --nb arm, both at 19x19x228, k=5: finite draws, R > 1, the JAX
-     package's keys and shapes, nan_fallbacks == 0;
+     package's keys and shapes, nan_fallbacks == 0; the NegBinom arm
+     launches the Polya-Gamma kernel (csrc/polyagamma.cu) once a sweep,
+     counted from 0 over the run and in its run record, and its last draw
+     is held to the plain version on the same inputs and noise, on the
+     card, within 4 float32 eps of the terms' magnitudes (a lane within
+     rounding of an acceptance threshold left out), a second launch bit
+     for bit (ops/polyagamma_bench.py);
   8. agreement: models run on the card (kernels) and on the CPU (plain
      versions) must reach the same posterior mean of Mu (rel < 0.12; 400
      draws from 4 chains of 120 + 100 sweeps):
@@ -169,7 +175,10 @@ Phases (any failure raises and exits non-zero before the last line):
      an H100 and its share of it; then the launches, device time and host
      waits a sweep of the new paths but the row-constraints recipe and
      ESS, of a PGDS sweep at both widths and of a BNP-CovReg iteration at
-     flu width (torch.profiler). Last, because
+     flu width (torch.profiler); the Polya-Gamma kernel's device time,
+     host time and bound by bytes on that last draw's inputs and on them
+     tiled to the NegBinom benchmark cell's 128 chains with noise of its
+     own, beside the plain version's time. Last, because
      torch.profiler slows every later launch of the process on the host.
 After each group of phases a line gives the seconds elapsed so far. The
 line before the last is the kernels' JSON record, the last line
@@ -1569,18 +1578,45 @@ def binomial_phase(dev, nburn=25, nsamples=15):
 
 
 def negbinom_phase(nburn=10, nsamples=10):
-    """NegBinom through the politics app's --nb arm, on the card."""
+    """NegBinom through the politics app's --nb arm, on the card. Returns
+    the model and its Polya-Gamma run: the kernel's launches counted from
+    0 over the app's run, the arm's sweeps, and the inputs, noise and
+    answer of its last draw (:func:`pg_kernel_check`)."""
     from functionalmf_tpu_torch.apps.politics import benchmark
+    from functionalmf_tpu_torch.models import binomial
+    from functionalmf_tpu_torch.ops import polyagamma as PG
+    last, pg0 = {}, binomial.polya_gamma
+
+    def keep(gen, b, c, **kw):
+        omega = pg0(gen, b, c, **kw)
+        last.update(b=b.clone(), c=c.clone(), z=kw["z"].clone(),
+                    noise=tuple(t.clone() for t in kw["gamma_noise"]),
+                    got=omega.clone())
+        return omega
+
     with tempfile.TemporaryDirectory() as empty:
         args = benchmark.parse_args(
             ["--no-pgds", "--nb", "--device", "cuda", "--data-dir", empty,
              "--nthin", "1", "--nburn", str(nburn), "--nsamples",
              str(nsamples)])
-        t0 = time.perf_counter()
-        out = benchmark.run(args)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        PG.reset_launch_counts()
+        binomial.polya_gamma = keep
+        try:
+            t0 = time.perf_counter()
+            out = benchmark.run(args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            binomial.polya_gamma = pg0
+    launches = dict(PG.launch_counts)
     res, model = out.nb_results, out.nb_model
+    sweeps = model.last_run["sweeps"]
+    in_record = model.last_run["counts"]["launches"]
+    if (launches != {"polya_gamma": sweeps, "polya_gamma_g": 0}
+            or in_record["polya_gamma"] != sweeps
+            or in_record["polya_gamma_g"] != 0):
+        fail(f"negbinom: Polya-Gamma kernel launches {launches}, in the run "
+             f"record {in_record}; one a sweep of {sweeps} expected")
     if model.device.type != "cuda":
         fail("negbinom: the model is not on the card")
     check_family("negbinom (politics --nb)", res, family_shapes(
@@ -1595,8 +1631,68 @@ def negbinom_phase(nburn=10, nsamples=10):
         fail(f"negbinom: non-finite report {row}")
     print(f"negbinom (politics --nb): both arms, {2 * (nburn + nsamples)} "
           f"sweeps and the report in {dt:.3f}s; R={res['R'].mean():.4f} "
-          + " ".join(f"{a}={b:.4f}" for a, b in row.items()))
-    return model
+          + " ".join(f"{a}={b:.4f}" for a, b in row.items())
+          + f"; polya_gamma kernel launches {launches['polya_gamma']} in "
+          f"{sweeps} sweeps")
+    return model, dict(launches=launches["polya_gamma"], sweeps=sweeps,
+                       last=last)
+
+
+def pg_kernel_check(pg_run):
+    """The Polya-Gamma kernel's last draw of the NegBinom arm against the
+    plain version on the same inputs and noise, on the card, and a second
+    launch bit for bit (ops/polyagamma_bench.py:check_draw)."""
+    from functionalmf_tpu_torch.ops import polyagamma_bench as PB
+    d = pg_run["last"]
+    try:
+        chk = PB.check_draw(d["got"], d["b"], d["c"], d["z"], d["noise"])
+    except AssertionError as exc:
+        fail(f"negbinom: {exc}")
+    pg_run["rounds"] = chk.pop("rounds")
+    pg_run["check"] = chk
+    if chk["ambiguous"] > chk["cells"] // 100:
+        fail(f"negbinom: {chk['ambiguous']} of {chk['cells']} cells within "
+             "rounding of an acceptance threshold")
+    shape = "x".join(map(str, d["b"].shape))
+    print(f"polya_gamma kernel (the NegBinom arm's last draw, {shape}): "
+          f"{chk['err_eps']:.3f} float32 eps of the terms' magnitudes from "
+          f"the plain version ({PB.TOL_EPS} allowed; max |err| "
+          f"{chk['max_abs_err']:.3e}), {chk['ref_eps']:.3f} from float64; "
+          f"{chk['ambiguous']} of {chk['cells']} cells left out as within "
+          "rounding of a threshold; two launches bit for bit")
+
+
+def pg_kernel_times(dev, pg_run, nchains=128, seed=11):
+    """The Polya-Gamma kernel's times and bound
+    (ops/polyagamma_bench.py:time_draw) on the NegBinom arm's last draw's
+    inputs, then on its (b, c) tiled to ``nchains`` chains (the NegBinom
+    benchmark cell's count) with noise drawn here. Returns a record per
+    shape, the first the run's own."""
+    from functionalmf_tpu_torch.ops import polyagamma_bench as PB
+    from functionalmf_tpu_torch.ops.gamma import draw_gamma_mt_noise
+    d = pg_run["last"]
+    recs = []
+    rec = PB.time_draw(d["b"], d["c"], d["z"], d["noise"],
+                       rounds=pg_run["rounds"])
+    recs.append(dict(rec, shape="x".join(map(str, d["b"].shape))))
+    tile = (nchains,) + tuple(d["b"].shape[1:])
+    b, c = (t.expand(tile).contiguous() for t in (d["b"], d["c"]))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    K = d["noise"][0].shape[1]
+    noise = draw_gamma_mt_noise(gen, (K,) + tile, device=dev)
+    z = torch.randn(tile, generator=gen, device=dev)
+    rec = PB.time_draw(b, c, z, noise)
+    recs.append(dict(rec, shape="x".join(map(str, tile))))
+    del b, c, z, noise
+    torch.cuda.empty_cache()
+    for r in recs:
+        print(f"kernel polya_gamma ({r['shape']}, {K} terms): "
+              f"device_us={r['device_us']:.2f} host_us={r['host_us']:.2f} "
+              f"bound_us={r['bound_us']:.3f} (bytes: {r['bytes']}) "
+              f"pct_of_bound={r['pct_of_bound']:.1f} "
+              f"event_ms={r['event_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"[{r['timing']}]")
+    return recs
 
 
 def shrink_phase(dev, Y, Con, W0, V0, nburn=10, nsamples=10):
@@ -2824,7 +2920,8 @@ def main():
     gauss_model, gauss_Y = gaussian_phase(dev, nchains=1)
     gaussian_phase(dev, nchains=4)
     binom_model, binom_data = binomial_phase(dev)
-    nb_model = negbinom_phase()
+    nb_model, pg_run = negbinom_phase()
+    pg_kernel_check(pg_run)
     stamp("the Gaussian, Binomial and NegBinom models")
     agreement_phase(dev, "redblack", ep=False)
     agreement_phase(dev, "redblack", ep=False, gass_method="shrink")
@@ -2915,6 +3012,7 @@ def main():
     # last: torch.profiler, which times the kernels, slows every later
     # launch of the process on the host; the recipe once more shows how much
     records = kernel_phase(dev, Y, W0, V0, pol, example)
+    pg_records = pg_kernel_times(dev, pg_run)
     stamp("the kernel phase")
     # not the last two (the row-constraints recipe is the red-black recipe
     # plus a hook of a few launches; ESS has no launch of its own to count):
@@ -2959,6 +3057,23 @@ def main():
             host_us=rec["host_us"], event_ms=rec["event_ms"],
             launches_per_sweep=launches[name] / sweeps[name],
             device_us_by_shape={r["shape"]: r["device_us"] for r in mine}))
+    # the Polya-Gamma kernel's main path: the politics app's --nb arm
+    pg, chk = pg_records[0], pg_run["check"]
+    kernels.append(dict(
+        name="polya_gamma", route="cuda",
+        source="functionalmf_tpu_torch/csrc/polyagamma.cu",
+        replaces="functionalmf_tpu/ops/polyagamma.py:81 (XLA elementwise "
+                 "ops, no TPU kernel)",
+        launches=pg_run["launches"], max_abs_err=chk["max_abs_err"],
+        err_eps=chk["err_eps"], ms=pg["device_us"] / 1e3,
+        plain_ms=pg["plain_ms"], bound_ms=pg["bound_us"] / 1e3,
+        bound_by=pg["bound_by"], library_ms=None, shape=pg["shape"],
+        device_us=pg["device_us"], bound_us=pg["bound_us"],
+        host_us=pg["host_us"], event_ms=pg["event_ms"],
+        launches_per_sweep=pg_run["launches"] / pg_run["sweeps"],
+        device_us_by_shape={r["shape"]: r["device_us"] for r in pg_records},
+        plain_ms_by_shape={r["shape"]: r["plain_ms"] for r in pg_records},
+        bound_us_by_shape={r["shape"]: r["bound_us"] for r in pg_records}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

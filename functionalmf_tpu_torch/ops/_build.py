@@ -108,6 +108,12 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fmf_col_block_ll.argtypes = [i, p, p, p, p, p, p, p, p, p,
                                      i, i, i, i, i, i, i, i, p, i, i, i]
     lib.fmf_col_block_ll.restype = i
+    # b, c, z, x, u, ub, g, out, cells, terms, rounds, normal_above,
+    # stream (x = u = ub = NULL with g; g = NULL with the noise)
+    lib.fmf_polya_gamma.argtypes = [p, p, p, p, p, p, p, p,
+                                    ctypes.c_longlong, i, i, ctypes.c_float,
+                                    p]
+    lib.fmf_polya_gamma.restype = i
     lib.fmf_error_string.argtypes = [i]
     lib.fmf_error_string.restype = ctypes.c_char_p
     return lib

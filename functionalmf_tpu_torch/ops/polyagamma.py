@@ -1,4 +1,4 @@
-"""Polya-Gamma sampler in plain PyTorch.
+"""Polya-Gamma sampler: plain PyTorch, and one CUDA kernel on the card.
 
 Counterpart of functionalmf_tpu/ops/polyagamma.py:38-132. Truncated
 sum-of-gammas representation with an exact tail-mean correction: PG(b, c)
@@ -12,6 +12,14 @@ discarded tail is added, in closed form from E[PG(b, c)] = b / (2c)
 tanh(c / 2). So the mean is exact for every (b, c) and the variance is
 short by the tail's, which decays like sum_{k>K} k^-4. The shapes do not
 depend on the data and the gamma draw is one batched call.
+
+Routing: CPU tensors take the plain version, ``polya_gamma_plain``. CUDA
+float32 tensors launch the kernel of ``csrc/polyagamma.cu`` (one thread a
+cell: the Marsaglia-Tsang rounds, the terms' sum and the tail mean in
+registers, on the same noise, drawn here in the same order), or raise;
+there is no fallback on the card. A tensor of another dtype, tensors on
+two devices or a device of another type raise. Every kernel launch adds
+one to ``launch_counts``.
 """
 from __future__ import annotations
 
@@ -19,11 +27,22 @@ import math
 
 import torch
 
-from functionalmf_tpu_torch.ops.gamma import gamma_mt
+from functionalmf_tpu_torch.ops.gamma import draw_gamma_mt_noise, gamma_mt
 
-__all__ = ["polya_gamma", "pg_mean", "pg_var"]
+__all__ = ["polya_gamma", "polya_gamma_plain", "pg_mean", "pg_var",
+           "launch_counts", "reset_launch_counts"]
 
 _TWO_PI_SQ = 2.0 * math.pi ** 2
+
+# kernel launches: the Marsaglia-Tsang rounds on the noise, and the
+# variant that reads given gamma draws
+launch_counts = {"polya_gamma": 0, "polya_gamma_g": 0}
+_ROUNDS = 6       # the Marsaglia-Tsang rounds gamma_mt runs on given noise
+
+
+def reset_launch_counts():
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def _tanh_half_over(c):
@@ -80,7 +99,26 @@ def polya_gamma(gen, b, c, num_terms: int = 16, use_mt: bool = True,
     < normal_approx_above, else 1) and ``z`` (shape) inject them;
     ``gamma_noise`` injects the Marsaglia-Tsang sampler's own draws
     (``ops/gamma.py:draw_gamma_mt_noise`` at (num_terms,) + shape).
+
+    Tensor arguments are float32, on the CPU (the plain version) or on one
+    CUDA device (the kernel); numbers and arrays join them there.
     """
+    noise = tuple(gamma_noise) if gamma_noise is not None else ()
+    given = {nm: t for nm, t in (("b", b), ("c", c), ("g", g), ("z", z),
+                                 *zip(("x", "u", "ub"), noise))
+             if torch.is_tensor(t)}
+    if _on_card(given):
+        return _polya_gamma_card(gen, b, c, num_terms, use_mt,
+                                 normal_approx_above, g, z, noise)
+    return polya_gamma_plain(gen, b, c, num_terms, use_mt,
+                             normal_approx_above, g, z, gamma_noise)
+
+
+def polya_gamma_plain(gen, b, c, num_terms: int = 16, use_mt: bool = True,
+                      normal_approx_above: float = 50.0, g=None, z=None,
+                      gamma_noise=None):
+    """``polya_gamma`` in plain PyTorch, on any device: the CPU's path,
+    and on a card the yardstick the kernel is compared and timed with."""
     b = torch.as_tensor(b, dtype=torch.float32)
     c = torch.as_tensor(c, dtype=torch.float32, device=b.device)
     b, c = torch.broadcast_tensors(b, c)
@@ -118,3 +156,88 @@ def polya_gamma(gen, b, c, num_terms: int = 16, use_mt: bool = True,
     normal_draw = torch.clamp(mean_full + z * torch.sqrt(pg_var(b, c)),
                               min=1e-12)
     return torch.where(pos, torch.where(big, normal_draw, gamma_draw), 0.0)
+
+
+# ----------------------------------------------------------------------
+# the kernel
+# ----------------------------------------------------------------------
+def _on_card(tensors):
+    """False for CPU tensors (or none), True for CUDA tensors; TypeError
+    for a tensor that is not float32, ValueError for two devices or a
+    device of another type."""
+    devs = {t.device for t in tensors.values()}
+    for nm, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"polya_gamma: {nm} must be float32, got "
+                            f"{t.dtype}")
+    if len(devs) > 1:
+        raise ValueError("polya_gamma: tensors on several devices: "
+                         + ", ".join(f"{nm} on {t.device}"
+                                     for nm, t in tensors.items()))
+    if not devs or next(iter(devs)).type == "cpu":
+        return False
+    if next(iter(devs)).type != "cuda":
+        raise ValueError(f"no polya_gamma path for device {devs.pop()}")
+    return True
+
+
+def _cells(t, lead, shape, name):
+    """``t`` at (lead) + shape, contiguous, or ValueError."""
+    want = tuple(lead) + tuple(shape)
+    if tuple(t.shape) != want:
+        raise ValueError(f"polya_gamma: {name} has shape {tuple(t.shape)}, "
+                         f"expected {want}")
+    return t.contiguous()
+
+
+def _polya_gamma_card(gen, b, c, num_terms, use_mt, normal_above, g, z,
+                      noise):
+    """``polya_gamma`` on a CUDA device: the noise drawn as the plain
+    version draws it (gammas, then normals, from ``gen``), then one
+    launch of ``fmf_polya_gamma``."""
+    dev = next(t.device for t in (b, c, g, z, *noise) if torch.is_tensor(t))
+    b = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    c = torch.as_tensor(c, dtype=torch.float32, device=dev)
+    b, c = torch.broadcast_tensors(b, c)
+    shape = tuple(b.shape)
+    K = int(num_terms)
+    if g is None and use_mt and not noise:
+        noise = draw_gamma_mt_noise(gen, (K,) + shape, device=dev)
+    elif g is None and not use_mt:
+        b_safe = torch.where((b > 0) & (b < normal_above), b, 1.0)
+        g = torch._standard_gamma(b_safe.expand((K,) + shape).contiguous(),
+                                  generator=gen)
+    if z is None:
+        z = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+    z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+    z = z.expand(shape).contiguous()
+    if g is not None:
+        g = _cells(g, (K,), shape, "g")
+        x = u = ub = None
+        rounds, name = 0, "polya_gamma_g"
+    else:
+        x, u, ub = noise
+        rounds, name = _ROUNDS, "polya_gamma"
+        x = _cells(x, (rounds, K), shape, "gamma_noise x")
+        u = _cells(u, (rounds, K), shape, "gamma_noise u")
+        ub = _cells(ub, (K,), shape, "gamma_noise ub")
+    b, c = b.contiguous(), c.contiguous()
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    from functionalmf_tpu_torch.ops._build import load_library
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.fmf_polya_gamma(
+            b.data_ptr(), c.data_ptr(), z.data_ptr(), ptr(x), ptr(u),
+            ptr(ub), ptr(g), out.data_ptr(), out.numel(), K, rounds,
+            float(normal_above), stream)
+    if code != 0:
+        msg = lib.fmf_error_string(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+    launch_counts[name] += 1
+    return out

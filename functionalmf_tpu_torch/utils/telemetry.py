@@ -64,7 +64,8 @@ The record::
     stream_ms   {sweep, and each phase or span that ran}: ms summed over
                 the call's sweeps
     counts      {head|sweep|flush|tail: {site: n},
-                 launches: {kernel: fused kernel launches of the call}}
+                 launches: {kernel: hand-written kernel launches of the
+                            call: ``fused_ll``'s and ``polyagamma``'s}}
     d2h_bytes   bytes of the draws copied to the host
 """
 from __future__ import annotations
@@ -74,13 +75,19 @@ import time
 
 import torch
 
-from functionalmf_tpu_torch.ops import fused_ll
+from functionalmf_tpu_torch.ops import fused_ll, polyagamma
 
-__all__ = ["KEEP", "record", "recent", "count", "phase", "span", "Run"]
+__all__ = ["KEEP", "record", "recent", "count", "phase", "span", "Run",
+           "launch_counts"]
 
 KEEP = 8
 _recent = collections.deque(maxlen=KEEP)
 _current = None            # the run under way in this process
+
+
+def launch_counts():
+    """Every hand-written kernel's launches so far in this process."""
+    return {**fused_ll.launch_counts, **polyagamma.launch_counts}
 
 
 def recent():
@@ -185,7 +192,7 @@ class Run:
         self._last = None          # the stamp taken last
         self._rf = None            # the head's or tail's label
         self._t_tail = None
-        self._launches0 = dict(fused_ll.launch_counts)
+        self._launches0 = launch_counts()
 
     # -- the call ----------------------------------------------------------
     def __enter__(self):
@@ -282,7 +289,7 @@ class Run:
     def as_dict(self):
         counts = {k: dict(v) for k, v in self.counts.items()}
         counts["launches"] = {k: v - self._launches0.get(k, 0)
-                              for k, v in fused_ll.launch_counts.items()}
+                              for k, v in launch_counts().items()}
         return dict(sweeps=self.sweeps, nchains=int(self.model.nchains),
                     host_ms=dict(self.host_ms),
                     stream_ms=dict(self.stream_ms), counts=counts,

@@ -44,6 +44,7 @@ MODULES = [
     "functionalmf_tpu_torch.ops.mvn",
     "functionalmf_tpu_torch.ops.penalty",
     "functionalmf_tpu_torch.ops.polyagamma",
+    "functionalmf_tpu_torch.ops.polyagamma_bench",
     "functionalmf_tpu_torch.parallel",
     "functionalmf_tpu_torch.parallel.mesh",
     "functionalmf_tpu_torch.pgds",

@@ -2,7 +2,14 @@
 (functionalmf_tpu_torch/ops/gamma.py, ops/polyagamma.py) against the JAX
 package's: equal under the noise JAX itself draws from the same key
 (rtol=1e-5), the closed forms equal (pg_mean 1e-6, pg_var 1e-5 relative), and the port's own
-draws against the closed-form moments and an exact Devroye sampler."""
+draws against the closed-form moments and an exact Devroye sampler.
+
+The Polya-Gamma draw's JAX comparison also holds on a card, where
+``polya_gamma`` launches the kernel of csrc/polyagamma.cu: live here
+(marker ``cuda``), and through tests/pg_jax_draws.npz, the JAX draws and
+the noise behind them, which a test here keeps equal to what the JAX
+package draws and tests/test_torch_polyagamma_kernel.py compares the
+kernel with on a card without jax."""
 import math
 
 import numpy as np
@@ -21,6 +28,8 @@ from functionalmf_tpu_torch.ops.gamma import draw_gamma_mt_noise, gamma_mt
 from functionalmf_tpu_torch.ops.polyagamma import (pg_mean, pg_var,
                                                    polya_gamma)
 from tests.pg_exact import exact_pg, exact_pg1
+from tests.test_torch_polyagamma_kernel import (RECORDED,
+                                                kernel_against_jax_draw)
 
 
 def _t(x):
@@ -107,30 +116,93 @@ def test_pg_mean_and_var_match_jax_through_the_series_cutoffs():
                                rtol=2e-3)
 
 
-@pytest.mark.parametrize("use_mt", [True, False])
-def test_polya_gamma_matches_jax_under_injected_noise(key, rng, use_mt):
-    """b spans 0 (missing), fractional, the gamma branch and the normal
-    branch (>= 50); c spans both series cut-offs. The gammas and normals
-    are JAX's own, from its key split (polyagamma.py:112-126)."""
+def _jax_pg_case(key, rng, use_mt, K=16):
+    """b spanning 0 (missing), fractional, the gamma branch and the normal
+    branch (>= 50), c spanning both series cut-offs; the JAX package's
+    draw from ``key``, and its own gammas (or, with ``use_mt``, the
+    Marsaglia-Tsang noise behind them) and normals, from its key split
+    (polyagamma.py:112-126), as float32 tensors."""
     shape = (6, 40)
     b = rng.choice([0.0, 0.5, 1.0, 3.7, 49.0, 50.0, 120.0],
                    size=shape).astype(np.float32)
     c = (rng.normal(0, 2, size=shape)
          * rng.choice([1e-3, 0.05, 1.0], size=shape)).astype(np.float32)
-    K = 16
     want = np.asarray(jpolya_gamma(key, jnp.asarray(b), jnp.asarray(c),
                                    num_terms=K, use_mt=use_mt))
     k_g, k_n = jax.random.split(key)
     b_safe = np.where((b > 0) & (b < 50.0), b, 1.0).astype(np.float32)
     if use_mt:
         g = jgamma_mt(k_g, jnp.asarray(b_safe), shape=(K,) + shape)
+        noise = _jax_mt_noise(k_g, (K,) + shape)
     else:
         g = jax.random.gamma(k_g, jnp.asarray(b_safe), shape=(K,) + shape)
+        noise = None
     z = jax.random.normal(k_n, shape, jnp.float32)
-    got = polya_gamma(None, _t(b), _t(c), num_terms=K, use_mt=use_mt,
-                      g=_t(g), z=_t(z)).numpy()
+    return dict(b=_t(b), c=_t(c), g=_t(g), z=_t(z), noise=noise,
+                want=_t(want))
+
+
+@pytest.mark.parametrize("use_mt", [True, False])
+def test_polya_gamma_matches_jax_under_injected_noise(key, rng, use_mt):
+    """b spans 0 (missing), fractional, the gamma branch and the normal
+    branch (>= 50); c spans both series cut-offs. The gammas and normals
+    are JAX's own, from its key split (polyagamma.py:112-126)."""
+    case = _jax_pg_case(key, rng, use_mt)
+    b, want = case["b"].numpy(), case["want"].numpy()
+    got = polya_gamma(None, case["b"], case["c"], num_terms=16,
+                      use_mt=use_mt, g=case["g"], z=case["z"]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12)
     assert (got[b == 0] == 0).all() and (got[b > 0] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_mt", [True, False])
+def test_polya_gamma_kernel_matches_jax_under_injected_noise_on_card(
+        key, rng, use_mt):
+    """The kernel on the card (``polya_gamma`` on CUDA tensors) against the
+    JAX package's draw at the CPU test's tolerance: with ``use_mt`` from
+    the Marsaglia-Tsang noise JAX drew (the kernel's rounds), else from
+    JAX's gammas (the kernel's variant that reads g); a lane whose
+    acceptance test lies within rounding of its threshold left out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
+    kernel_against_jax_draw(_jax_pg_case(key, rng, use_mt), use_mt,
+                            torch.device("cuda"))
+
+
+def record_jax_draws(path=RECORDED):
+    """Write the JAX package's draws of ``_jax_pg_case`` at the suite's
+    fixtures (PRNGKey(0), default_rng(42)), with the noise and gammas
+    behind them, for the card test of tests/test_torch_polyagamma_kernel.py
+    (the card's machine has no jax): ``python -m tests.test_torch_polyagamma``
+    from the repository's root."""
+    mt = _jax_pg_case(jax.random.PRNGKey(0), np.random.default_rng(42), True)
+    std = _jax_pg_case(jax.random.PRNGKey(0), np.random.default_rng(42),
+                       False)
+    x, u, ub = mt["noise"]
+    np.savez_compressed(path, b=mt["b"], c=mt["c"], z=mt["z"], x=x, u=u,
+                        ub=ub, want_mt=mt["want"], g_std=std["g"],
+                        want_std=std["want"])
+
+
+@pytest.mark.parametrize("use_mt", [True, False])
+def test_the_recorded_jax_draws_are_the_jax_packages(key, rng, use_mt):
+    """tests/pg_jax_draws.npz holds what the JAX package draws now: the
+    card's test against it is a test against the JAX package."""
+    case = _jax_pg_case(key, rng, use_mt)
+    rec = np.load(RECORDED)
+    np.testing.assert_array_equal(rec["b"], case["b"].numpy())
+    np.testing.assert_array_equal(rec["c"], case["c"].numpy())
+    np.testing.assert_allclose(rec["z"], case["z"].numpy(), rtol=1e-6)
+    if use_mt:
+        for name, t in zip(("x", "u", "ub"), case["noise"]):
+            np.testing.assert_allclose(rec[name], t.numpy(), rtol=1e-6,
+                                       atol=1e-30)
+    else:
+        np.testing.assert_allclose(rec["g_std"], case["g"].numpy(),
+                                   rtol=1e-6)
+    np.testing.assert_allclose(rec["want_mt" if use_mt else "want_std"],
+                               case["want"].numpy(), rtol=1e-6, atol=1e-30)
 
 
 @pytest.mark.parametrize("b,c", [(1.0, 0.5), (3.0, 1.0), (50.0, 0.1),
@@ -177,3 +249,9 @@ def test_pg_ks_against_exact_sampler(b, c):
                        torch.full((n,), c)).numpy()
     d = ks_2samp(ours, exact).statistic
     assert d < 1.949 * np.sqrt(2.0 / n), d
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    record_jax_draws()
+    print(f"wrote {RECORDED}")

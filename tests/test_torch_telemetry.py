@@ -163,11 +163,12 @@ def test_fused_launches_are_the_deltas_of_launch_counts(monkeypatch):
     monkeypatch.setattr(constrained, "fused_row_ll_batched", row)
     monkeypatch.setattr(constrained, "fused_col_block_ll_batched", col)
     m, Y = _model("recipe")
-    before = dict(fused_ll.launch_counts)
+    before = telemetry.launch_counts()
     m.run_gibbs(Y, **RUN)
-    delta = {k: v - before[k] for k, v in fused_ll.launch_counts.items()}
+    delta = {k: v - before[k] for k, v in telemetry.launch_counts().items()}
     assert m.last_run["counts"]["launches"] == delta
     assert delta["fused_row_ll"] == 9 and delta["fused_col_block_ll"] > 9
+    assert delta["polya_gamma"] == delta["polya_gamma_g"] == 0
 
 
 @pytest.mark.cuda
@@ -191,7 +192,7 @@ def test_sweep_sum_equals_a_traced_callbacks_intervals_on_the_card():
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     start.record()
-    before = dict(fused_ll.launch_counts)
+    before = telemetry.launch_counts()
     m.run_gibbs(Y, nburn=39, nthin=1, nsamples=1, verbose=False,
                 traced_callback=hook)
     torch.cuda.synchronize()
@@ -201,6 +202,6 @@ def test_sweep_sum_equals_a_traced_callbacks_intervals_on_the_card():
     assert rec["sweeps"] == 40
     assert rec["stream_ms"]["sweep"] == pytest.approx(
         callback_ms - rec["host_ms"]["head"], rel=0.01)
-    delta = {k: v - before[k] for k, v in fused_ll.launch_counts.items()}
+    delta = {k: v - before[k] for k, v in telemetry.launch_counts().items()}
     assert rec["counts"]["launches"] == delta
     assert delta["fused_row_ll"] == 40
